@@ -1,0 +1,171 @@
+"""Functional NN layers on parameter dicts (port of ``models/layers.py``).
+
+Public functions keep the JAX package's layout: activations are NHWC / NLC.
+Parameters keep the JAX tree's names (``kernel``, ``bias``, ``scale``) in
+PyTorch's layouts: a linear ``kernel`` is (out, in) and a conv ``kernel`` is
+OIHW. A conv runs on the NCHW view of an NHWC tensor, which is
+``channels_last`` in memory, so no copy is made around cuDNN.
+
+Normalization statistics are float32 whatever the activation dtype, and
+matmuls accumulate in float32, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def _uniform(generator: torch.Generator, shape, bound: float, dtype,
+             device) -> torch.Tensor:
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    t.uniform_(-bound, bound, generator=generator)
+    return t.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Linear
+# ---------------------------------------------------------------------------
+
+
+def linear_init(generator: torch.Generator, in_features: int,
+                out_features: int, bias: bool = True,
+                dtype=torch.bfloat16, device=None):
+    """U(+-1/sqrt(in)) kernel, zero bias (the JAX package's distribution)."""
+    p = {"kernel": _uniform(generator, (out_features, in_features),
+                            1.0 / math.sqrt(in_features), dtype, device)}
+    if bias:
+        p["bias"] = torch.zeros(out_features, dtype=dtype, device=device)
+    return p
+
+
+def linear(p, x: torch.Tensor) -> torch.Tensor:
+    return F.linear(x, p["kernel"].to(x.dtype),
+                    None if "bias" not in p else p["bias"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Conv2D (NHWC activations, OIHW kernel)
+# ---------------------------------------------------------------------------
+
+
+def conv_init(generator: torch.Generator, in_channels: int,
+              out_channels: int, kernel_size: int = 3,
+              dtype=torch.bfloat16, device=None):
+    fan_in = in_channels * kernel_size * kernel_size
+    kernel = _uniform(generator,
+                      (out_channels, in_channels, kernel_size, kernel_size),
+                      1.0 / math.sqrt(fan_in), dtype, device)
+    return {"kernel": kernel.contiguous(memory_format=torch.channels_last),
+            "bias": torch.zeros(out_channels, dtype=dtype, device=device)}
+
+
+def _same_pads(size: int, k: int, stride: int):
+    """XLA's SAME padding: the odd pixel goes to the high side, so a 3x3
+    stride-2 conv pads (0, 1), not torch's symmetric (1, 1)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d(p, x: torch.Tensor, stride: int = 1,
+           padding: str = "SAME") -> torch.Tensor:
+    """NHWC conv with an OIHW kernel; ``padding`` is "SAME" or "VALID"."""
+    w = p["kernel"].to(x.dtype)
+    k = w.shape[-1]
+    xc = x.permute(0, 3, 1, 2)  # NCHW view, channels_last in memory
+    pad = 0
+    if padding == "SAME":
+        ph = _same_pads(x.shape[1], k, stride)
+        pw = _same_pads(x.shape[2], k, stride)
+        if ph[0] == ph[1] and pw[0] == pw[1]:
+            pad = (ph[0], pw[0])
+        else:
+            xc = F.pad(xc, (pw[0], pw[1], ph[0], ph[1]))
+    elif padding != "VALID":
+        raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
+    y = F.conv2d(xc, w, p["bias"].to(x.dtype), stride=stride, padding=pad)
+    return y.permute(0, 2, 3, 1)
+
+
+def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest 2x upsampling of NHWC (``jax.image.resize`` "nearest" at an
+    integer ratio repeats each pixel)."""
+    return F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2.0,
+                         mode="nearest").permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# Normalization
+# ---------------------------------------------------------------------------
+
+
+def norm_init(num_channels: int, dtype=torch.bfloat16, device=None):
+    return {"scale": torch.ones(num_channels, dtype=dtype, device=device),
+            "bias": torch.zeros(num_channels, dtype=dtype, device=device)}
+
+
+def group_norm(p, x: torch.Tensor, num_groups: int = 32,
+               eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over the channel (last) axis of NHWC / NLC tensors, entirely
+    in float32 with the biased variance, as the JAX package computes it."""
+    xf = x.float().movedim(-1, 1)
+    out = F.group_norm(xf, num_groups, p["scale"].float(), p["bias"].float(),
+                       eps)
+    return out.movedim(1, -1).to(x.dtype)
+
+
+def layer_norm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    out = F.layer_norm(x.float(), (x.shape[-1],), p["scale"].float(),
+                       p["bias"].float(), eps)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return F.silu(x)
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="none")
+
+
+ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": gelu, "silu": silu}
+
+
+# ---------------------------------------------------------------------------
+# Timestep (sinusoidal) embedding
+# ---------------------------------------------------------------------------
+
+
+def timestep_embedding(t: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
+                       freq_shift: float = 0.0,
+                       max_period: float = 10000.0,
+                       device: Optional[torch.device] = None) -> torch.Tensor:
+    """Sinusoidal embedding of (possibly fractional) timesteps, in float32:
+    half cos / half sin when ``flip_sin_to_cos``."""
+    t = torch.as_tensor(t, dtype=torch.float32, device=device)
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(max_period)
+        * torch.arange(half, dtype=torch.float32, device=t.device)
+        / (half - freq_shift)
+    )
+    args = t[..., None] * freqs
+    sin, cos = torch.sin(args), torch.cos(args)
+    emb = torch.cat([cos, sin], -1) if flip_sin_to_cos else torch.cat(
+        [sin, cos], -1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb

@@ -1,0 +1,91 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package,
+and its entry points run on the card unless the caller names a device.
+
+The import checks run in a subprocess, because this test process has JAX
+loaded already (tests/conftest.py).
+"""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from diffusionspatialcontrol_tpu_torch import resolve_device, tiny_config
+from diffusionspatialcontrol_tpu_torch.convert.from_jax import params_from_jax
+from diffusionspatialcontrol_tpu_torch.models.factory import (
+    init_pipeline_params,
+)
+from diffusionspatialcontrol_tpu_torch.pipeline.pipeline import (
+    StableDiffusionTorch,
+)
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "diffusionspatialcontrol_tpu_torch"
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import diffusionspatialcontrol_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({"modules": names, "loaded": sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "diffusionspatialcontrol_tpu"))}))
+"""
+
+
+def test_importing_every_port_module_loads_no_jax():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(result["modules"]) >= 20
+    assert result["loaded"] == []
+
+
+def _imported_roots(path: Path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", sorted(
+    [ROOT / "chip_smoke.py", *PACKAGE.rglob("*.py")], key=str),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_neither_jax_nor_the_jax_package(path):
+    roots = _imported_roots(path)
+    assert not roots & {"jax", "jaxlib", "diffusionspatialcontrol_tpu"}, roots
+
+
+def test_chip_smoke_without_a_card_fails_and_prints_no_result():
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = tiny_config()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_pipeline_params(0, cfg, torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StableDiffusionTorch(cfg, {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_jax({"kernel": [[0.0]]})
+    assert resolve_device("cpu") == torch.device("cpu")
