@@ -77,6 +77,9 @@ def check_close(name, got, want, rtol, atol) -> float:
     """Assert |got - want| <= atol + rtol |want| elementwise; returns the max
     absolute error."""
     got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)}, expected "
+                             f"{tuple(want.shape)}")
     err = (got - want).abs()
     bad = err > atol + rtol * want.abs()
     if not torch.isfinite(got).all() or bool(bad.any()):
@@ -108,6 +111,10 @@ class ColdTimer:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return float(np.median(times))
+
+
+def rms(t: torch.Tensor) -> float:
+    return float(t.float().square().mean().sqrt())
 
 
 def bound(b, h, l, s, d, dtype, bias: bool):
@@ -144,14 +151,19 @@ def _qkv(g, b, l, s, h, d, dtype, device):
 
 
 def phase_kernels(ctx):
-    """K1 and K2 against their plain versions at every main-path shape.
+    """K1 and K2, through the wrappers the UNet calls, against their plain
+    versions at every main-path shape.
 
     Tolerances: fp32 operands rtol 2e-4 / atol 2e-5 (the JAX package's own
-    kernel tolerance, tests/test_pallas.py); bf16 operands against the plain
-    version in fp32 on the same bf16 values, 1e-2 (the output's bf16
-    rounding is 2^-9 relative, plus the order of summation); K2 with
-    qk_bf16, pv_bf16 and exp2 on, 2e-2 (tests/test_pallas.py's bound for
-    those options: P is rounded to bf16)."""
+    kernel tolerance, tests/test_pallas.py). bf16 operands against the plain
+    version in fp32 on the same bf16 values: rtol 1e-2, over the output's
+    bf16 rounding (at most 2^-8 relative), and atol 5% of the reference's
+    RMS, for outputs near zero; at level-0 self-attention the RMS is about
+    0.026, so a fault in the bf16 loads or stores cannot hide under a fixed
+    atol. K2 with pv_bf16 and exp2 on, against the plain version with the
+    same options, at the same tolerance: each side rounds P to bf16 (2^-9
+    relative) against its own running or final max, which moves an output
+    by about 2^-9 of its typical size."""
     import torch.nn.functional as F
 
     from diffusionspatialcontrol_tpu_torch.ops.kernels import flash_attention as k2
@@ -180,26 +192,27 @@ def phase_kernels(ctx):
         w = torch.randn(BATCH, l, s, generator=g, device=dev)
         if kern == "K1":
             def run(q, k, v):
-                return k1.region_softmax_attention_kernel(q, k, v, w)
+                return k1.region_softmax_attention(q, k, v, w)
 
             def plain(q, k, v):
                 return k1.region_softmax_attention_plain(q, k, v, w)
         else:
-            run, plain = k2.flash_attention_kernel, k2.flash_attention_plain
+            run, plain = k2.flash_attention_nlhd, k2.flash_attention_plain
         e32 = check_close(f"{tag} fp32", run(q, k, v), plain(q, k, v),
                           2e-4, 2e-5)
         qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+        q16, k16, v16 = (t.float() for t in (qb, kb, vb))
         out = run(qb, kb, vb)
         if out.dtype != torch.bfloat16:
             raise AssertionError(f"{tag}: bf16 operands gave {out.dtype}")
-        want = plain(q.bfloat16().float(), k.bfloat16().float(),
-                     v.bfloat16().float())
-        e16 = check_close(f"{tag} bf16", out, want, 1e-2, 1e-2)
+        want = plain(q16, k16, v16)
+        e16 = check_close(f"{tag} bf16", out, want, 1e-2, 0.05 * rms(want))
         if kern == "K2":
-            opt = k2.flash_attention_kernel(qb, kb, vb, qk_bf16=True,
-                                            pv_bf16=True, use_exp2=True)
-            e16 = max(e16, check_close(f"{tag} bf16 +qkbf16+pvbf16+exp2",
-                                       opt, want, 2e-2, 2e-2))
+            opt = k2.flash_attention_nlhd(qb, kb, vb, pv_bf16=True,
+                                          use_exp2=True)
+            want = plain(q16, k16, v16, pv_bf16=True, use_exp2=True)
+            e16 = max(e16, check_close(f"{tag} bf16 +pvbf16+exp2", opt, want,
+                                       1e-2, 0.05 * rms(want)))
         torch.cuda.synchronize()
         errs[kern][0] = max(errs[kern][0], e32)
         errs[kern][1] = max(errs[kern][1], e16)
@@ -219,7 +232,7 @@ def phase_kernels(ctx):
         log(f"kernels: {tag}: fp32 err {e32:.2e}, bf16 err {e16:.2e}; "
             f"bf16 {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
             f"ms, bound {b_ms:.4f} ms ({rows[name][-1]['bound_by']})")
-        del q, k, v, qb, kb, vb, w, out, want
+        del q, k, v, qb, kb, vb, q16, k16, v16, w, out, want
 
     # K1's bias broadcasts over heads: identical q/k/v in every head give
     # identical outputs in every head.
@@ -227,7 +240,7 @@ def phase_kernels(ctx):
     q, k, v = (t.expand(-1, -1, HEADS, -1).contiguous().to(torch.bfloat16)
                for t in _qkv(g, BATCH, l, TEXT, 1, d, torch.float32, dev))
     w = torch.randn(BATCH, l, TEXT, generator=g, device=dev)
-    out = k1.region_softmax_attention_kernel(q, k, v, w)
+    out = k1.region_softmax_attention(q, k, v, w)
     for h in range(1, HEADS):
         if not torch.equal(out[:, :, h], out[:, :, 0]):
             raise AssertionError(f"K1 head broadcast: head {h} differs")

@@ -13,8 +13,9 @@
 //
 // Options (attn_impl suffixes of the JAX UNet): OPT_PV_BF16 rounds P to
 // bf16 before P.V; OPT_EXP2 takes exp as exp2(x * log2 e). "qk_bf16" needs
-// no code here: QK^T of bf16 operands is already formed from the exact
-// products in fp32, which is what that option asks of the TPU kernel.
+// no code here: that option only keeps the TPU kernel from casting Q and K
+// to fp32 before its fp32-accumulated QK^T, and this kernel always forms
+// QK^T in fp32 from the operands' own values.
 
 #include "attention.cuh"
 

@@ -6,10 +6,11 @@ convs), transformers with self-attention, region-biased or plain
 cross-attention and a GEGLU feed-forward, down/up sampling and skips.
 Activations are NHWC; attention operands are (B, L, H, D).
 
-``attn_impl`` takes the JAX strings: ``"pallas[+qkbf16][+pvbf16][+exp2]"``
-routes attention through the hand-written kernels of ``ops/kernels`` (their
-plain versions on CPU tensors), ``"xla"`` through the plain torch ops of
-``ops/attention``.
+``attn_impl`` takes the JAX package's kernel strings,
+``"pallas[+qkbf16][+pvbf16][+exp2]"``: attention always goes through the
+hand-written kernels of ``ops/kernels`` (their plain versions on CPU
+tensors). Any other value raises; there is no plain attention path for
+CUDA tensors.
 
 Not ported yet (passing them raises): FreeU, ControlNet and T2I residuals,
 IP-Adapter, heatmaps, TGATE caching, DeepCache and the fused-conv
@@ -25,7 +26,6 @@ import torch
 import torch.nn.functional as F
 
 from ..config import UNetConfig
-from ..ops import attention as attn_ops
 from ..ops.kernels.flash_attention import flash_attention_nlhd
 from ..ops.kernels.region_attention import region_attention_nlhd
 from .layers import (
@@ -229,39 +229,40 @@ def _heads_merge(x):
     return x.reshape(b, l, h * d)
 
 
-def _flash_opts(attn_impl: str) -> dict:
-    """``attn_impl="pallas+exp2+qkbf16+pvbf16"`` selects the K2 options."""
-    opts = attn_impl.split("+")[1:]
-    return {"qk_bf16": "qkbf16" in opts, "pv_bf16": "pvbf16" in opts,
-            "use_exp2": "exp2" in opts}
+def flash_options(attn_impl: str) -> dict:
+    """K2's options from ``attn_impl="pallas[+qkbf16][+pvbf16][+exp2]"``.
+
+    ``+qkbf16`` is accepted and selects nothing: in the Pallas kernel it only
+    skips the cast of Q and K to fp32 before an fp32-accumulated QK^T, and
+    K2 and its plain version always form QK^T in fp32 from the operands' own
+    values."""
+    base, *suffixes = attn_impl.split("+")
+    unknown = set(suffixes) - {"qkbf16", "pvbf16", "exp2"}
+    if base != "pallas" or unknown:
+        raise ValueError(
+            f"attn_impl={attn_impl!r}: the port takes "
+            f"'pallas[+qkbf16][+pvbf16][+exp2]' (attention runs only "
+            f"through its kernels)")
+    return {"pv_bf16": "pvbf16" in suffixes, "use_exp2": "exp2" in suffixes}
 
 
-def _self_attention(p, x, heads, attn_impl):
+def _self_attention(p, x, heads, flash_opts):
     q = _heads_split(linear(p["to_q"], x), heads)
     k = _heads_split(linear(p["to_k"], x), heads)
     v = _heads_split(linear(p["to_v"], x), heads)
-    if attn_impl.startswith("pallas"):
-        out = flash_attention_nlhd(q, k, v, **_flash_opts(attn_impl))
-    else:
-        out = attn_ops.attention_nlhd(q, k, v)
+    out = flash_attention_nlhd(q, k, v, **flash_opts)
     return linear(p["to_out"], _heads_merge(out))
 
 
-def _cross_attention(p, x, cond: UNetCond, level: int, heads, attn_impl):
+def _cross_attention(p, x, cond: UNetCond, level: int, heads, flash_opts):
     q = _heads_split(linear(p["to_q"], x), heads)
     k = _heads_split(linear(p["to_k"], cond.context), heads)
     v = _heads_split(linear(p["to_v"], cond.context), heads)
     if cond.region is not None:
-        bias = cond.region.biases[level]
-        if attn_impl.startswith("pallas"):
-            out = region_attention_nlhd(q, k, v, bias, cond.region.sigma)
-        else:
-            out = attn_ops.region_attention_nlhd(q, k, v, bias,
-                                                 cond.region.sigma)
-    elif attn_impl.startswith("pallas"):
-        out = flash_attention_nlhd(q, k, v, **_flash_opts(attn_impl))
+        out = region_attention_nlhd(q, k, v, cond.region.biases[level],
+                                    cond.region.sigma)
     else:
-        out = attn_ops.attention_nlhd(q, k, v)
+        out = flash_attention_nlhd(q, k, v, **flash_opts)
     return linear(p["to_out"], _heads_merge(out))
 
 
@@ -271,7 +272,7 @@ def _geglu_ff(p, x):
 
 
 def _transformer_apply(p, cfg: UNetConfig, x, cond: UNetCond, level: int,
-                       heads, attn_impl):
+                       heads, flash_opts):
     b, hh, ww, c = x.shape
     residual = x
     h = group_norm(p["norm"], x, cfg.norm_num_groups, 1e-6)
@@ -282,9 +283,9 @@ def _transformer_apply(p, cfg: UNetConfig, x, cond: UNetCond, level: int,
 
     for bp in p["blocks"]:
         h = h + _self_attention(bp["attn1"], layer_norm(bp["norm1"], h),
-                                heads, attn_impl)
+                                heads, flash_opts)
         xo = _cross_attention(bp["attn2"], layer_norm(bp["norm2"], h), cond,
-                              level, heads, attn_impl)
+                              level, heads, flash_opts)
         h = h + xo.to(h.dtype)
         h = h + _geglu_ff(bp["ff"], layer_norm(bp["norm3"], h))
 
@@ -309,6 +310,7 @@ def unet_apply(params: Dict[str, Any], cfg: UNetConfig,
     if conv_impl not in (None, "xla"):
         raise NotImplementedError(
             f"conv_impl={conv_impl!r}: only the plain conv path is ported")
+    flash_opts = flash_options(attn_impl)
     groups, eps_ = cfg.norm_num_groups, cfg.norm_eps
 
     temb = timestep_embedding(timesteps, cfg.block_out_channels[0],
@@ -331,7 +333,7 @@ def unet_apply(params: Dict[str, Any], cfg: UNetConfig,
                               next(t_it))
             if block["attentions"]:
                 h = _transformer_apply(block["attentions"][j], cfg, h, cond,
-                                       level, cfg.heads_at(level), attn_impl)
+                                       level, cfg.heads_at(level), flash_opts)
             skips.append(h)
         if "downsample" in block:
             h = conv2d(block["downsample"], h, stride=2)
@@ -341,7 +343,7 @@ def unet_apply(params: Dict[str, Any], cfg: UNetConfig,
     top = cfg.num_levels - 1
     h = _resnet_apply(mid["resnet1"], h, groups, eps_, next(t_it))
     h = _transformer_apply(mid["attention"], cfg, h, cond, top,
-                           cfg.heads_at(top), attn_impl)
+                           cfg.heads_at(top), flash_opts)
     h = _resnet_apply(mid["resnet2"], h, groups, eps_, next(t_it))
 
     for i, block in enumerate(params["up_blocks"]):
@@ -352,7 +354,7 @@ def unet_apply(params: Dict[str, Any], cfg: UNetConfig,
                               next(t_it))
             if block["attentions"]:
                 h = _transformer_apply(block["attentions"][j], cfg, h, cond,
-                                       level, cfg.heads_at(level), attn_impl)
+                                       level, cfg.heads_at(level), flash_opts)
         if "upsample" in block:
             h = conv2d(block["upsample"], upsample_nearest2x(h))
 

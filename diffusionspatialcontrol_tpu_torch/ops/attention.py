@@ -11,11 +11,12 @@ The mechanism:
 (B, H, L, S) logits tensor, across both CFG halves. The bias ``w`` is
 (B, L, S) and is broadcast across heads. Softmax is float32.
 
-Everything here is plain PyTorch: the materialized oracles, the
-centered-Gram std (a plain reduction in the JAX package too) and the
-``attn_impl="xla"`` entry points. The CUDA kernels and their plain versions
-live in ``ops/kernels``. The ``axis_name`` (multi-device) branch of the JAX
-package is not ported yet.
+Everything here is plain PyTorch: the materialized oracles the tests hold
+the kernels to, and the centered-Gram std with the bias it scales (plain
+reductions in the JAX package too). The BTNH entry points the UNet calls,
+``flash_attention_nlhd`` and ``region_attention_nlhd``, live with their
+kernels in ``ops/kernels``. The ``axis_name`` (multi-device) branch of the
+JAX package is not ported yet.
 """
 
 from __future__ import annotations
@@ -108,35 +109,3 @@ def region_attention_reference(q, k, v, region_state, sigma,
     out = torch.einsum("bhls,bhsd->bhld", probs.to(v.dtype).float(),
                        v.float())
     return out.to(q.dtype)
-
-
-# ---------------------------------------------------------------------------
-# BTNH-layout entry points ((B, L, H, D)): the attn_impl="xla" path of the
-# UNet. They materialize the logits in fp32.
-# ---------------------------------------------------------------------------
-
-
-def _biased_softmax_attention_nlhd(q, k, v, bias, scale: float):
-    logits = torch.einsum("blhd,bshd->bhls", q.float(), k.float()) * scale
-    if bias is not None:
-        logits = logits + bias[:, None]
-    probs = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhls,bshd->blhd", probs, v.float()).to(q.dtype)
-
-
-def attention_nlhd(q, k, v, scale: Optional[float] = None):
-    """q: (B, L, H, D); k, v: (B, S, H, D) -> (B, L, H, D)."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    return _biased_softmax_attention_nlhd(q, k, v, None, scale)
-
-
-def region_attention_nlhd(q, k, v, region_state, sigma,
-                          weight_scale: float = 1.0,
-                          scale: Optional[float] = None):
-    """BTNH region attention; region_state: (B, L, S)."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    std = logits_std_gram_nlhd(q, k, scale)
-    w = region_bias(region_state, sigma, std, weight_scale)
-    return _biased_softmax_attention_nlhd(q, k, v, w, scale)

@@ -8,8 +8,15 @@ The kernel is ``csrc/flash_attention.cu`` (design and bound in
 compute-bound, and K/V do not fit a block's shared memory, so the kernel
 streams them with an online softmax instead of the TPU's single pass.
 
+Options: ``pv_bf16`` and ``use_exp2`` as in the Pallas kernel. Its third
+option, ``qk_bf16``, only stops that kernel from casting Q and K to fp32
+before an fp32-accumulated QK^T; both versions here always form QK^T from
+the operands' own values in fp32, so the UNet's ``+qkbf16`` suffix selects
+nothing (see ``models/unet.py``).
+
 Dispatch: CPU tensors take ``flash_attention_plain``; CUDA tensors launch
-the kernel or raise. ``flash_attention_nlhd.launches`` counts launches.
+the kernel or raise. ``flash_attention_nlhd.launches`` counts launches; the
+launcher adds to it, so every launch counts, whoever calls it.
 """
 
 from __future__ import annotations
@@ -33,14 +40,10 @@ _OPT_PV_BF16 = 1
 _OPT_EXP2 = 2
 
 
-def flash_attention_plain(q, k, v, qk_bf16: bool = False,
-                          pv_bf16: bool = False, use_exp2: bool = False):
+def flash_attention_plain(q, k, v, pv_bf16: bool = False,
+                          use_exp2: bool = False):
     """Materialized fp32 logits and softmax, as the TPU kernel computes them.
-    q: (B, L, H, D); k, v: (B, S, H, D) -> (B, L, H, D) in q's dtype.
-
-    ``qk_bf16`` changes nothing: a QK^T of bf16 operands accumulated in fp32
-    equals the fp32 product of the same values (bf16 products are exact)."""
-    del qk_bf16
+    q: (B, L, H, D); k, v: (B, S, H, D) -> (B, L, H, D) in q's dtype."""
     scale = q.shape[-1] ** -0.5
     s = torch.einsum("blhd,bshd->bhls", q.float(), k.float()) * scale
     s = s - s.amax(dim=-1, keepdim=True)
@@ -52,10 +55,9 @@ def flash_attention_plain(q, k, v, qk_bf16: bool = False,
     return out.transpose(1, 2).to(q.dtype)
 
 
-def flash_attention_kernel(q, k, v, qk_bf16: bool = False,
-                           pv_bf16: bool = False, use_exp2: bool = False):
-    """Launch K2 on CUDA operands (no dispatch, no count)."""
-    del qk_bf16  # see flash_attention_plain
+def flash_attention_kernel(q, k, v, pv_bf16: bool = False,
+                           use_exp2: bool = False):
+    """Launch K2 on CUDA operands (no dispatch); counts the launch."""
     opts = (_OPT_PV_BF16 if pv_bf16 else 0) | (_OPT_EXP2 if use_exp2 else 0)
     dtype_code = check_nlhd(q, k, v)
     b, l, h, d = q.shape
@@ -70,17 +72,16 @@ def flash_attention_kernel(q, k, v, qk_bf16: bool = False,
              strides_arg(q, k, v, out), 1.0 / math.sqrt(d), opts,
              stream_arg(q))
     raise_on_error(err, "flash_attention")
-    return out
-
-
-def flash_attention_nlhd(q, k, v, qk_bf16: bool = False,
-                         pv_bf16: bool = False, use_exp2: bool = False):
-    """softmax(Q K^T / sqrt(D)) V. q: (B, L, H, D); k, v: (B, S, H, D)."""
-    if on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v, qk_bf16, pv_bf16, use_exp2)
-    out = flash_attention_kernel(q, k, v, qk_bf16, pv_bf16, use_exp2)
     flash_attention_nlhd.launches += 1
     return out
+
+
+def flash_attention_nlhd(q, k, v, pv_bf16: bool = False,
+                         use_exp2: bool = False):
+    """softmax(Q K^T / sqrt(D)) V. q: (B, L, H, D); k, v: (B, S, H, D)."""
+    if on_cpu(q, k, v):
+        return flash_attention_plain(q, k, v, pv_bf16, use_exp2)
+    return flash_attention_kernel(q, k, v, pv_bf16, use_exp2)
 
 
 flash_attention_nlhd.launches = 0

@@ -12,7 +12,7 @@ and std stay 0-d device tensors, so nothing here waits for the card.
 
 Dispatch: CPU tensors take ``region_softmax_attention_plain``; CUDA tensors
 launch the kernel or raise. ``region_softmax_attention.launches`` counts
-launches.
+launches; the launcher adds to it, so every launch counts, whoever calls it.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ def region_softmax_attention_plain(q, k, v, w):
 
 
 def region_softmax_attention_kernel(q, k, v, w):
-    """Launch K1 on CUDA operands (no dispatch, no count)."""
+    """Launch K1 on CUDA operands (no dispatch); counts the launch."""
     dtype_code = check_nlhd(q, k, v)
     b, l, h, d = q.shape
     s_len = k.shape[1]
@@ -64,6 +64,7 @@ def region_softmax_attention_kernel(q, k, v, w):
              out.data_ptr(), dtype_code, b, h, l, s_len, d,
              strides_arg(q, k, v, out), 1.0 / math.sqrt(d), stream_arg(q))
     raise_on_error(err, "region_attention")
+    region_softmax_attention.launches += 1
     return out
 
 
@@ -71,9 +72,7 @@ def region_softmax_attention(q, k, v, w):
     """softmax(Q K^T / sqrt(D) + w) V with a precomputed bias w (B, L, S)."""
     if on_cpu(q, k, v, w):
         return region_softmax_attention_plain(q, k, v, w)
-    out = region_softmax_attention_kernel(q, k, v, w)
-    region_softmax_attention.launches += 1
-    return out
+    return region_softmax_attention_kernel(q, k, v, w)
 
 
 region_softmax_attention.launches = 0

@@ -29,7 +29,7 @@ import torch
 
 from ..config import GenerationConfig, ModelConfig
 from ..device import resolve_device
-from ..models.unet import RegionState, UNetCond, unet_apply
+from ..models.unet import RegionState, UNetCond, flash_options, unet_apply
 from ..models.vae import vae_decode
 from ..samplers import schedules, solvers
 
@@ -139,9 +139,9 @@ class StableDiffusionTorch:
     """txt2img with optional region control.
 
     ``device`` defaults to CUDA and raises when there is none; CPU runs pass
-    ``device="cpu"``. ``attn_impl`` takes the JAX package's strings
-    ("pallas[+qkbf16][+pvbf16][+exp2]" = the hand-written kernels,
-    "xla" = plain torch attention)."""
+    ``device="cpu"``. ``attn_impl`` takes the JAX package's kernel strings,
+    "pallas[+qkbf16][+pvbf16][+exp2]" (see ``models.unet.flash_options``);
+    anything else raises."""
 
     def __init__(self, model_cfg: ModelConfig, params: Dict[str, Any],
                  tokenizer=None, attn_impl: str = "pallas",
@@ -150,6 +150,7 @@ class StableDiffusionTorch:
         self.model_cfg = model_cfg
         self.params = params
         self.tokenizer = tokenizer
+        flash_options(attn_impl)  # raises on a string the port does not take
         self.attn_impl = attn_impl
         self.sigma_table = schedules.ddpm_sigma_table(model_cfg)
         self.log_sigma_table = torch.tensor(

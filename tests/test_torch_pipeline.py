@@ -241,3 +241,13 @@ def test_unported_paths_raise(params):
         pipe.txt2img(ctx, gen, hires={"scale": 2.0})
     with pytest.raises(NotImplementedError):
         pipe.txt2img(ctx, tcfg.GenerationConfig(sampler="euler"))
+
+
+def test_pipeline_takes_only_kernel_attention(params):
+    _, tp = params
+    with pytest.raises(ValueError):
+        StableDiffusionTorch(tcfg.tiny_config(), tp, attn_impl="xla",
+                             device="cpu")
+    pipe = StableDiffusionTorch(tcfg.tiny_config(), tp,
+                                attn_impl="pallas+qkbf16+exp2", device="cpu")
+    assert pipe.attn_impl == "pallas+qkbf16+exp2"

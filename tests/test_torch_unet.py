@@ -1,9 +1,9 @@
 """The PyTorch port's ``unet_apply`` against the JAX package's, tiny config,
 fp32, the same converted weights and inputs, with and without a region map.
 
-The JAX side runs ``attn_impl="xla"``; the port runs its kernel path
-(``"pallas"``: the kernels' plain versions on CPU tensors) and its plain
-``"xla"`` path. Tolerance: rtol 1e-4 / atol 1e-4 on outputs of magnitude
+The JAX side runs ``attn_impl="xla"``; the port runs its kernel path (the
+kernels' plain versions on CPU tensors) with and without the ``+exp2``
+option. Tolerance: rtol 1e-4 / atol 1e-4 on outputs of magnitude
 ~1, for a ~40-layer-deep fp32 network whose convolutions and attention sum
 in another order on each side.
 """
@@ -46,7 +46,7 @@ def _inputs(seed):
 
 
 @pytest.mark.parametrize("region", [True, False])
-@pytest.mark.parametrize("attn_impl", ["pallas", "xla"])
+@pytest.mark.parametrize("attn_impl", ["pallas", "pallas+exp2"])
 def test_unet_apply_matches_jax(unet_params, region, attn_impl):
     jp, tp = unet_params
     x, ctx, t, biases = _inputs(1)
@@ -82,3 +82,23 @@ def test_unet_rejects_unported_options(unet_params):
         tunet.unet_apply(*args, freeu=object())
     with pytest.raises(NotImplementedError):
         tunet.unet_apply(*args, conv_impl="pallas")
+
+
+@pytest.mark.parametrize("attn_impl", ["xla", "pallas+bogus", "flash"])
+def test_unet_takes_only_kernel_attention(unet_params, attn_impl):
+    """Attention runs only through the kernels: a string that names another
+    path raises instead of reaching plain attention."""
+    _, tp = unet_params
+    x, ctx, t, _ = _inputs(3)
+    with pytest.raises(ValueError):
+        tunet.unet_apply(tp, tcfg.tiny_config().unet, torch.from_numpy(x),
+                         torch.from_numpy(t),
+                         tunet.UNetCond(context=torch.from_numpy(ctx)),
+                         attn_impl=attn_impl)
+
+
+def test_flash_options_parse_the_jax_suffixes():
+    assert tunet.flash_options("pallas") == {"pv_bf16": False,
+                                             "use_exp2": False}
+    assert tunet.flash_options("pallas+exp2+qkbf16+pvbf16") == {
+        "pv_bf16": True, "use_exp2": True}
