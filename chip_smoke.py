@@ -8,19 +8,28 @@ result line:
 1. build: compile every CUDA source of the port with nvcc (one process per
    source, all started together) and print the card's name and power limit;
 2. kernels: K1 (region attention) and K2 (attention) against their plain
-   PyTorch versions at every shape the SD1.5 512^2 main path gives them,
-   and their times beside the plain version's, the least time the card
-   could take (bound) and ``scaled_dot_product_attention`` as a yardstick
-   (``library_ms``; the port never calls it);
+   PyTorch versions at every shape the SD1.5 512^2 main path gives them;
+   K2 at the two shapes where the JAX package streams (K3: the level-0
+   self-attention at 1024^2, L = 16384, and at 1920x1088, L = 32640); K4
+   and K5 (the fused GroupNorm+SiLU+conv3x3) at every resnet-conv shape of
+   the UNet and the VAE decoder at 512^2 and 1024^2. Each with its time
+   beside the plain version's, the least time the card could take (bound)
+   and one library call as a yardstick (``library_ms``: SDPA for
+   attention, cuDNN's conv for K4/K5; the port never calls them);
 3. tiny: the tiny config's txt2img (fp32, 64x64, 4 steps, with and without a
    two-phrase region map, the same weights and latents) on the card against
-   the port on the CPU, where the kernels' plain versions run;
+   the port on the CPU, where the kernels' plain versions run; the same
+   with the fused resnet convs (``conv_impl="pallas"`` and ``"pallas2"``),
+   and a hires request (64^2 -> 128^2, 4 + 2 steps);
 4. main: SD1.5 at full width (random bf16 weights from a seed), the request
    ``bench.py`` times: 512^2, 25 DPM++ 2M steps on Karras sigmas, CFG 7.5,
    a two-phrase region map, VAE decode to uint8. It serves spatial requests
    at batch 1, vanilla requests at batch 1 and spatial requests at batch 2,
-   checks every image and the kernels' launch counts, and prints the p50
-   seconds per image of each request type after one warm-up.
+   spatial requests with the fused resnet convs (K4, then K5), and hires
+   requests 512^2 -> 1024^2 (strength 0.6, the map re-encoded at 1024^2;
+   plain convs, then K4); it checks every image and the kernels' exact
+   launch counts, prints the p50 seconds per image of each request type
+   after one warm-up, and profiles one request of some types.
 
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.
@@ -58,8 +67,20 @@ PER_UNET = sum(n for _, _, n in LEVELS)  # 16 transformers
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
-K1_REPLACES = "diffusionspatialcontrol_tpu/ops/pallas/region_attention.py:41"
-K2_REPLACES = "diffusionspatialcontrol_tpu/ops/pallas/flash_attention.py:77"
+# Where the JAX package streams K/V (K3): the level-0 self-attention at
+# 1024^2 (the hires pass) and at 1920x1088 (kernel check only); B, H, D as
+# above.
+K3_SHAPES = ((16384, 40), (32640, 40))
+HIRES = 1024
+
+_PALLAS = "diffusionspatialcontrol_tpu/ops/pallas/"
+REPLACES = {
+    "K1": _PALLAS + "region_attention.py:41",
+    "K2": _PALLAS + "flash_attention.py:77",
+    "K3": _PALLAS + "flash_attention.py:33",
+    "K4": _PALLAS + "conv_fused.py:96 (K4a) and :138 (K4b)",
+    "K5": _PALLAS + "conv_fused.py:440",
+}
 
 
 def log(*args):
@@ -111,6 +132,64 @@ class ColdTimer:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return float(np.median(times))
+
+
+def resnet_conv_shapes(cfg, height: int, width: int, batch: int = 1):
+    """Every fused conv of one UNet call (the CFG pair: 2 * batch) and one
+    VAE decode (batch), in call order, as (where, B, H, W, C_in, C_out,
+    temb, skip): conv1 of a resnet takes the time projection (UNet only),
+    conv2 the shortcut. Derived from the configs alone, with the UNet's skip
+    stack simulated; tests/test_torch_conv_fused.py holds it to the calls
+    the port makes."""
+    out = []
+
+    def resnet(where, b, size, c_in, c_out):
+        out.append((where, b, *size, c_in, c_out, where == "unet", False))
+        out.append((where, b, *size, c_out, c_out, False, True))
+
+    u = cfg.unet
+    size = (height // 8, width // 8)
+    sizes = []
+    for _ in u.block_out_channels:
+        sizes.append(size)
+        size = (-(-size[0] // 2), -(-size[1] // 2))  # stride-2 SAME conv
+    b0 = u.block_out_channels[0]
+    stack, c = [b0], b0
+    for lv, c_out in enumerate(u.block_out_channels):
+        for _ in range(u.layers_per_block):
+            resnet("unet", 2 * batch, sizes[lv], c, c_out)
+            c = c_out
+            stack.append(c)
+        if lv < u.num_levels - 1:
+            stack.append(c)  # the downsample's output
+    resnet("unet", 2 * batch, sizes[-1], c, c)
+    resnet("unet", 2 * batch, sizes[-1], c, c)
+    for lv in reversed(range(u.num_levels)):
+        c_out = u.block_out_channels[lv]
+        for _ in range(u.layers_per_block + 1):
+            resnet("unet", 2 * batch, sizes[lv], c + stack.pop(), c_out)
+            c = c_out
+
+    v = cfg.vae
+    size = (height // 8, width // 8)
+    c = v.block_out_channels[-1]
+    resnet("vae", batch, size, c, c)
+    resnet("vae", batch, size, c, c)
+    for lv, c_out in enumerate(reversed(v.block_out_channels)):
+        for _ in range(v.layers_per_block + 1):
+            resnet("vae", batch, size, c, c_out)
+            c = c_out
+        if lv < len(v.block_out_channels) - 1:
+            size = (2 * size[0], 2 * size[1])
+    return out
+
+
+def jax_sends_to_k4b(h: int, w: int) -> bool:
+    """Whether the JAX package's tile search leaves the whole-map K4a for
+    the row-tiled K4b at an H x W map: on this slice's shapes, exactly the
+    maps of 128 x 128 and more (tests/test_torch_conv_fused.py re-derives
+    it from the search itself)."""
+    return h * w >= 128 * 128
 
 
 def rms(t: torch.Tensor) -> float:
@@ -259,7 +338,179 @@ def phase_kernels(ctx):
         "K1": dict(summary(rows["K1"]), err=errs["K1"], shapes=rows["K1"]),
         "K2": dict(summary(rows["K2"]), err=errs["K2"],
                    shapes=rows["K2"] + rows["K2 cross"]),
+        "K3": k3_checks(dev, g, timer, sdpa),
     }
+    ctx["kernels"].update(conv_checks(dev, g, timer))
+
+
+def k3_checks(dev, g, timer, sdpa):
+    """K2 at the shapes where the JAX package leaves its single-pass kernel
+    for the streaming K3, against the plain version run on 1024 query rows
+    at a time (the whole fp32 logits would be 17 GB at L = 32640).
+    Tolerances as for K2."""
+    from diffusionspatialcontrol_tpu_torch.ops.kernels import flash_attention as k2
+
+    def plain(q, k, v):
+        return torch.cat([k2.flash_attention_plain(q[:, i:i + 1024], k, v)
+                          for i in range(0, q.shape[1], 1024)], dim=1)
+
+    rows, errs = [], [0.0, 0.0]
+    for l, d in K3_SHAPES:
+        tag = f"K3 L=S={l} D={d}"
+        q, k, v = _qkv(g, BATCH, l, l, HEADS, d, torch.float32, dev)
+        errs[0] = max(errs[0], check_close(
+            f"{tag} fp32", k2.flash_attention_nlhd(q, k, v), plain(q, k, v),
+            2e-4, 2e-5))
+        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+        out = k2.flash_attention_nlhd(qb, kb, vb)
+        want = plain(*(t.float() for t in (qb, kb, vb)))
+        errs[1] = max(errs[1], check_close(f"{tag} bf16", out, want, 1e-2,
+                                           0.05 * rms(want)))
+        del q, k, v, out, want
+        ms = timer(lambda: k2.flash_attention_nlhd(qb, kb, vb), reps=3)
+        plain_ms = timer(lambda: plain(qb, kb, vb), reps=1, warmup=1)
+        lib_ms = timer(lambda: sdpa(qb, kb, vb), reps=3)
+        b_ms, t_bytes, t_ops = bound(BATCH, HEADS, l, l, d, torch.bfloat16,
+                                     False)
+        rows.append({"L": l, "S": l, "D": d, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": b_ms,
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations"})
+        log(f"kernels: {tag}: fp32 err {errs[0]:.2e}, bf16 err {errs[1]:.2e}"
+            f"; bf16 {ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} "
+            f"ms, bound {b_ms:.4f} ms ({rows[-1]['bound_by']})")
+        del qb, kb, vb
+    first = rows[0]  # the hires path's shape: the row's numbers
+    return dict(first, err=errs, shapes=rows)
+
+
+def conv_bound(b, h, w, c_in, c_out, temb, skip):
+    """(ms, bytes ms, operations ms) of one fused conv in bf16: x, the
+    weights, the skip and the output moved once (and the fp32 per-channel
+    vectors), against 2 * pixels * 9 * C_in * C_out operations."""
+    px = b * h * w
+    nbytes = 2 * (px * c_in + 9 * c_in * c_out + px * c_out * (1 + skip))
+    nbytes += 4 * (2 * b * c_in + c_out + (b * c_out if temb else 0))
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = 2 * px * 9 * c_in * c_out / PEAK_OPS[torch.bfloat16]
+    return 1e3 * max(t_bytes, t_ops), 1e3 * t_bytes, 1e3 * t_ops
+
+
+def conv_checks(dev, g, timer):
+    """K4 and K5 through their wrappers against ``gn_silu_conv3x3_plain`` at
+    every distinct resnet-conv shape of SD1.5's UNet (CFG pair) and VAE
+    decoder at 512^2 and 1024^2, with the GroupNorm folded from random
+    statistics as the resnets fold it.
+
+    Tolerances: fp32 5e-5 absolute (tests/test_conv_fused.py; sums of up to
+    9 * 2560 terms in another order). bf16: rtol 1e-2 and atol 5% of the
+    reference's RMS, as for K1/K2: both sides round the same activations to
+    bf16 and sum exact products in fp32, so they differ by the order of the
+    sum and the final rounding (at most 2^-8 relative). The yardstick
+    (``library_ms``) is cuDNN's bf16 conv with bias on the pre-activated
+    input, without the GroupNorm, SiLU, channel bias and skip."""
+    import torch.nn.functional as F
+
+    from diffusionspatialcontrol_tpu_torch.ops.kernels import conv_fused as kc
+
+    from diffusionspatialcontrol_tpu_torch import sd15_config
+
+    cfg = sd15_config()
+    per_call = {}  # shape -> launches in one 512^2 UNet call / one decode
+    shapes = []
+    for size in (512, HIRES):
+        for sh in resnet_conv_shapes(cfg, size, size):
+            if size == 512:
+                per_call[sh] = per_call.get(sh, 0) + 1
+            if sh not in shapes:
+                shapes.append(sh)
+    kernels = {"K4": kc.gn_silu_conv3x3, "K5": kc.gn_silu_conv3x3_v2}
+    rows = {name: [] for name in kernels}
+    errs = {name: [0.0, 0.0] for name in kernels}
+    for sh in shapes:
+        where, b, h, w, c_in, c_out, temb, skip = sh
+        tag = f"{where} {b}x{h}x{w} {c_in}->{c_out}" + (
+            " +temb" if temb else "") + (" +skip" if skip else "")
+        x = torch.randn(b, h, w, c_in, generator=g, device=dev)
+        gn = {"scale": 1 + 0.1 * torch.randn(c_in, generator=g, device=dev),
+              "bias": 0.1 * torch.randn(c_in, generator=g, device=dev)}
+        scale, bias = kc.fold_group_norm(gn, x, 32)
+        kern = (torch.rand(c_out, c_in, 3, 3, generator=g, device=dev) * 2
+                - 1) / (9 * c_in) ** 0.5
+        kern = kern.contiguous(memory_format=torch.channels_last)
+        cb = 0.1 * torch.randn(c_out, generator=g, device=dev)
+        xb = (torch.randn(b, c_out, generator=g, device=dev) if temb
+              else None)
+        sk = (torch.randn(b, h, w, c_out, generator=g, device=dev) if skip
+              else None)
+        want32 = kc.gn_silu_conv3x3_plain(x, scale, bias, kern, cb, xb, sk)
+        xb16, kb16 = x.to(torch.bfloat16), kern.to(torch.bfloat16)
+        sk16 = None if sk is None else sk.to(torch.bfloat16)
+        want16 = kc.gn_silu_conv3x3_plain(xb16, scale, bias, kb16, cb, xb,
+                                          sk16)
+        act16 = F.silu(xb16.float() * scale[:, None, None]
+                       + bias[:, None, None]).to(torch.bfloat16)
+        act16 = act16.permute(0, 3, 1, 2)
+        cb16 = cb.to(torch.bfloat16)
+        lib_ms = timer(lambda: F.conv2d(act16, kb16, cb16, padding=1))
+        plain_ms = timer(lambda: kc.gn_silu_conv3x3_plain(
+            xb16, scale, bias, kb16, cb, xb, sk16), reps=3)
+        b_ms, bytes_ms, ops_ms = conv_bound(b, h, w, c_in, c_out, temb, skip)
+        line = []
+        for name, fn in kernels.items():
+            e32 = check_close(f"{name} {tag} fp32",
+                              fn(x, scale, bias, kern, cb, xb, sk), want32,
+                              0.0, 5e-5)
+            out = fn(xb16, scale, bias, kb16, cb, xb, sk16)
+            if out.dtype != torch.bfloat16:
+                raise AssertionError(f"{name} {tag}: bf16 gave {out.dtype}")
+            e16 = check_close(f"{name} {tag} bf16", out, want16, 1e-2,
+                              0.05 * rms(want16))
+            ms = timer(lambda: fn(xb16, scale, bias, kb16, cb, xb, sk16))
+            errs[name] = [max(errs[name][0], e32), max(errs[name][1], e16)]
+            rows[name].append({
+                "where": where, "B": b, "H": h, "W": w, "C_in": c_in,
+                "C_out": c_out, "temb": temb, "skip": skip,
+                "per_call_512": per_call.get(sh, 0),
+                "jax_body": "K4b" if jax_sends_to_k4b(h, w) else "K4a",
+                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": b_ms, "bytes_ms": bytes_ms,
+                "operations_ms": ops_ms,
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "max_abs_err_fp32": e32, "max_abs_err_bf16": e16})
+            line.append(f"{name} {ms:.4f} ms (errs {e32:.1e}, {e16:.1e})")
+        torch.cuda.synchronize()
+        log(f"kernels: conv {tag}: " + ", ".join(line) + f"; plain "
+            f"{plain_ms:.4f} ms, cudnn {lib_ms:.4f} ms, bound {b_ms:.4f} ms")
+        del x, kern, xb, sk, want32, want16, xb16, kb16, sk16, act16
+
+    # Sums over the launches of one UNet call and one decode at each size,
+    # split by the Pallas body the JAX package would run there (K4a/K4b).
+    for size in (512, HIRES):
+        groups = {}
+        for sh in resnet_conv_shapes(cfg, size, size):
+            key = (sh[0], "K4b" if jax_sends_to_k4b(sh[2], sh[3]) else "K4a")
+            groups.setdefault(key, []).append(shapes.index(sh))
+        for (where, body), idx in groups.items():
+            tot = {f: [sum(rows[n][i][f] for i in idx) for n in kernels]
+                   for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            log(f"kernels: conv sums, {where} at {size}^2, {len(idx)} "
+                f"launches at {body} shapes: K4 {tot['ms'][0]:.4f} ms, K5 "
+                f"{tot['ms'][1]:.4f} ms, plain {tot['plain_ms'][0]:.4f} ms, "
+                f"cudnn {tot['library_ms'][0]:.4f} ms, bound "
+                f"{tot['bound_ms'][0]:.4f} ms")
+
+    def summary(name):
+        """Sums over the 44 launches of one 512^2 UNet call."""
+        tot = {key: sum(r[key] * r["per_call_512"] for r in rows[name]
+                        if r["where"] == "unet")
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                           "bytes_ms", "operations_ms")}
+        tot["bound_by"] = ("bytes" if tot["bytes_ms"] >= tot["operations_ms"]
+                           else "operations")
+        return dict(tot, err=errs[name], shapes=rows[name])
+
+    return {name: summary(name) for name in kernels}
 
 
 def _tree_to(tree, device):
@@ -279,21 +530,74 @@ def _masks(h, w):
             "blue bird": {"mask": m2, "weight": 0.7, "mask_outsides": 0.1}}
 
 
-def _counts():
+def _wrappers():
+    from diffusionspatialcontrol_tpu_torch.ops.kernels import conv_fused as kc
     from diffusionspatialcontrol_tpu_torch.ops.kernels import flash_attention as k2
     from diffusionspatialcontrol_tpu_torch.ops.kernels import region_attention as k1
 
-    return (k1.region_softmax_attention.launches,
-            k2.flash_attention_nlhd.launches)
+    return {"K1": k1.region_softmax_attention, "K2": k2.flash_attention_nlhd,
+            "K4": kc.gn_silu_conv3x3, "K5": kc.gn_silu_conv3x3_v2}
+
+
+def _counts():
+    """Launches so far of K1, K2, K4 and K5; "K3": K2's launches at the
+    shape where the JAX package streams (L = S = 16384, D = 40); "K4b": K4's
+    launches at the shapes the JAX package sends to its row-tiled body."""
+    w = _wrappers()
+    c = {name: fn.launches for name, fn in w.items()}
+    c["K3"] = w["K2"].shapes[(K3_SHAPES[0][0], K3_SHAPES[0][0],
+                              K3_SHAPES[0][1])]
+    c["K4b"] = sum(n for (_, h, ww, _, _), n in w["K4"].shapes.items()
+                   if jax_sends_to_k4b(h, ww))
+    return c
+
+
+def _reset_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
+        if hasattr(fn, "shapes"):
+            fn.shapes.clear()
+
+
+def want_launches(cfg, size, steps, spatial, conv_impl, hires_steps=0):
+    """The exact launches of one request: ``steps`` UNet calls at ``size``,
+    then ``hires_steps`` at twice the size, one decode at the last size."""
+    calls = [(size, steps)] + ([(2 * size, hires_steps)] if hires_steps
+                               else [])
+    n = steps + hires_steps
+    level0 = (2 * size // 8) ** 2
+    want = {"K1": PER_UNET * n if spatial else 0,
+            "K2": PER_UNET * n * (1 if spatial else 2),
+            "K3": LEVELS[0][2] * hires_steps
+            if level0 == K3_SHAPES[0][0] else 0,
+            "K4": 0, "K5": 0, "K4b": 0}
+    if conv_impl != "xla":
+        fused = [sh for sz, k in calls
+                 for sh in resnet_conv_shapes(cfg, sz, sz) * k
+                 if sh[0] == "unet"]
+        last = calls[-1][0]
+        fused += [sh for sh in resnet_conv_shapes(cfg, last, last)
+                  if sh[0] == "vae"]
+        want["K4" if conv_impl == "pallas" else "K5"] = len(fused)
+        if conv_impl == "pallas":
+            want["K4b"] = sum(jax_sends_to_k4b(sh[2], sh[3]) for sh in fused)
+    return want
+
+
+def _delta(after, before):
+    return {k: after[k] - before[k] for k in after}
 
 
 def phase_tiny(ctx):
     """Tiny config, fp32, the same weights and latents on the card (kernels)
-    and on the CPU (their plain versions). Tolerance: 2e-4 on fp32 pixels in
-    [-1, 1] and +-1 on uint8. Both sides compute in fp32 (TF32 is off), but
-    cuDNN and ATen's CPU convolutions and the kernels' online softmax sum in
-    other orders, through 4 steps of ~40 layers: an H100 run differed by
-    5e-6, and the port and the JAX package agree to 1e-4 on the CPU
+    and on the CPU (their plain versions): spatial and vanilla requests with
+    plain convs, spatial ones with the fused resnet convs (K4, K5), and a
+    hires request (64^2 -> 128^2, 4 + 2 steps, the map re-encoded).
+    Tolerance: 2e-4 on fp32 pixels in [-1, 1] and +-1 on uint8. Both sides
+    compute in fp32 (TF32 is off), but cuDNN and ATen's CPU convolutions,
+    the kernels' online softmax and the conv kernels sum in other orders,
+    through 4 steps of ~40 layers: an H100 run differed by 5e-6, and the
+    port and the JAX package agree to 1e-4 on the CPU
     (tests/test_torch_pipeline.py)."""
     from diffusionspatialcontrol_tpu_torch import GenerationConfig, tiny_config
     from diffusionspatialcontrol_tpu_torch.models.factory import (
@@ -307,42 +611,49 @@ def phase_tiny(ctx):
     cfg = tiny_config()
     cpu = torch.device("cpu")
     params = init_pipeline_params(0, cfg, torch.float32, device=cpu)
-    pipes = {dev.type: StableDiffusionTorch(cfg, _tree_to(params, dev),
-                                            tokenizer=HashTokenizer(),
-                                            device=dev)
-             for dev in (cpu, ctx["device"])}
+    on = {cpu.type: params, "cuda": _tree_to(params, ctx["device"])}
     gen = GenerationConfig(height=64, width=64, num_inference_steps=4,
                            dtype=torch.float32)
     lat = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (1, 8, 8, 4)).astype(np.float32))
-    for spatial in (True, False):
+    cases = (("spatial", "xla", True, False), ("vanilla", "xla", False, False),
+             ("spatial pallas", "pallas", True, False),
+             ("spatial pallas2", "pallas2", True, False),
+             ("hires", "xla", True, True))
+    for label, conv_impl, spatial, hires in cases:
         out = {}
-        for kind, pipe in pipes.items():
+        for kind in ("cpu", "cuda"):
+            pipe = StableDiffusionTorch(cfg, on[kind],
+                                        tokenizer=HashTokenizer(),
+                                        conv_impl=conv_impl, device=kind)
             c, ids = pipe.encode_prompt([PROMPT], [NEG])
             rb = (pipe.encode_region([_masks(64, 64)], ids, 64, 64)
                   if spatial else None)
+            opts = ({"scale": 2.0, "strength": 0.6,
+                     "region_state": ([_masks(64, 64)], ids, 1)}
+                    if hires else None)
             before = _counts()
-            img = pipe.txt2img(c, gen, latents=lat, region_biases=rb)
-            after = _counts()
-            if kind == "cuda":
-                d1, d2 = after[0] - before[0], after[1] - before[1]
-                want = (4 * PER_UNET, 4 * PER_UNET) if spatial else \
-                    (0, 8 * PER_UNET)
-                if (d1, d2) != want:
-                    raise AssertionError(
-                        f"tiny: launches K1 {d1}, K2 {d2}, expected {want}")
-            elif after != before:
-                raise AssertionError("tiny: a CPU run counted launches")
+            img = pipe.txt2img(c, gen, latents=lat, region_biases=rb,
+                               hires=opts)
+            got = _delta(_counts(), before)
+            want = (want_launches(cfg, 64, 4, spatial, conv_impl,
+                                  2 if hires else 0) if kind == "cuda"
+                    else dict.fromkeys(got, 0))
+            if got != want:
+                raise AssertionError(f"tiny {label} on {kind}: launches "
+                                     f"{got}, expected {want}")
             out[kind] = img.cpu()
-        err = check_close(f"tiny spatial={spatial}", out["cuda"], out["cpu"],
-                          0.0, 2e-4)
+        side = 128 if hires else 64
+        if out["cuda"].shape != (1, side, side, 3):
+            raise AssertionError(f"tiny {label}: image {out['cuda'].shape}")
+        err = check_close(f"tiny {label}", out["cuda"], out["cpu"], 0.0, 2e-4)
         u8 = [StableDiffusionTorch.to_uint8(out[k]).int()
               for k in ("cuda", "cpu")]
         u8_err = int((u8[0] - u8[1]).abs().max())
         if u8_err > 1:
-            raise AssertionError(f"tiny: uint8 differs by {u8_err}")
-        log(f"tiny: spatial={spatial}: card vs CPU max abs err {err:.2e} "
-            f"(fp32), {u8_err} (uint8)")
+            raise AssertionError(f"tiny {label}: uint8 differs by {u8_err}")
+        log(f"tiny: {label}: card vs CPU max abs err {err:.2e} (fp32), "
+            f"{u8_err} (uint8); launches {want}")
 
 
 def phase_main(ctx):
@@ -351,8 +662,6 @@ def phase_main(ctx):
         init_pipeline_params,
         param_count,
     )
-    from diffusionspatialcontrol_tpu_torch.ops.kernels import flash_attention as k2
-    from diffusionspatialcontrol_tpu_torch.ops.kernels import region_attention as k1
     from diffusionspatialcontrol_tpu_torch.pipeline.pipeline import (
         StableDiffusionTorch,
     )
@@ -361,7 +670,10 @@ def phase_main(ctx):
     cfg = sd15_config()
     t0 = time.perf_counter()
     params = init_pipeline_params(0, cfg, torch.bfloat16)
-    pipe = StableDiffusionTorch(cfg, params, tokenizer=load_tokenizer())
+    pipes = {ci: StableDiffusionTorch(cfg, params, tokenizer=load_tokenizer(),
+                                      conv_impl=ci)
+             for ci in ("xla", "pallas", "pallas2")}
+    pipe = pipes["xla"]
     torch.cuda.synchronize()
     log(f"main: SD1.5 {param_count(params) / 1e6:.1f} M parameters (bf16, "
         f"random from seed 0) on {pipe.device} in "
@@ -374,48 +686,55 @@ def phase_main(ctx):
     state = _masks(512, 512)
     rb1 = pipe.encode_region([state], ids1, height=512, width=512)
     rb2 = pipe.encode_region([state, state], ids2, height=512, width=512)
+    hires = {"scale": HIRES / 512, "strength": 0.6,
+             "region_state": ([state], ids1, 1)}
+    hires_steps = int(STEPS * hires["strength"])  # what img2img keeps
 
-    per_request = {"spatial": (STEPS * PER_UNET, STEPS * PER_UNET),
-                   "vanilla": (0, 2 * STEPS * PER_UNET)}
-    requests = (  # (type, context, region biases, seeds: first is warm-up)
-        ("spatial", c1, rb1, [0, 1, 2, 3, 4, 5]),
-        ("vanilla", c1, None, [0, 1, 2, 3, 4, 5]),
-        ("spatial_b2", c2, rb2, [[0, 1], [2, 3], [4, 5], [6, 7]]),
+    requests = (  # (type, conv_impl, context, biases, hires, seeds: the
+        #           first is a warm-up)
+        ("spatial", "xla", c1, rb1, None, [0, 1, 2, 3, 4, 5]),
+        ("vanilla", "xla", c1, None, None, [0, 1, 2, 3, 4, 5]),
+        ("spatial_b2", "xla", c2, rb2, None, [[0, 1], [2, 3], [4, 5],
+                                              [6, 7]]),
+        ("spatial_pallas", "pallas", c1, rb1, None, [0, 1, 2, 3]),
+        ("spatial_pallas2", "pallas2", c1, rb1, None, [0, 1, 2, 3]),
+        ("hires", "xla", c1, rb1, hires, [0, 1, 2]),
+        ("hires_pallas", "pallas", c1, rb1, hires, [0, 1]),
     )
-    k1.region_softmax_attention.launches = 0
-    k2.flash_attention_nlhd.launches = 0
+    _reset_counts()
     p50 = {}
-    for kind, ctx_, rb, seeds in requests:
+    for kind, conv_impl, ctx_, rb, opts, seeds in requests:
+        side = HIRES if opts else 512
+        want = want_launches(cfg, 512, STEPS, rb is not None, conv_impl,
+                             hires_steps if opts else 0)
         per_image = []
         for i, seed in enumerate(seeds):
             batch = len(seed) if isinstance(seed, list) else 1
             before = _counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            img = pipe.txt2img(ctx_, gen, seed=seed, region_biases=rb)
+            img = pipes[conv_impl].txt2img(ctx_, gen, seed=seed,
+                                           region_biases=rb, hires=opts)
             u8 = pipe.to_uint8(img).cpu()
             dt = time.perf_counter() - t0
-            after = _counts()
-            launches = (after[0] - before[0], after[1] - before[1])
-            want = per_request["vanilla" if rb is None else "spatial"]
+            launches = _delta(_counts(), before)
             if launches != want:
                 raise AssertionError(f"main {kind} seed {seed}: launches "
-                                     f"K1, K2 = {launches}, expected {want}")
-            if tuple(img.shape) != (batch, 512, 512, 3) or \
+                                     f"{launches}, expected {want}")
+            if tuple(img.shape) != (batch, side, side, 3) or \
                     img.dtype != torch.float32:
                 raise AssertionError(f"main {kind}: image {tuple(img.shape)} "
                                      f"{img.dtype}")
             if not bool(torch.isfinite(img).all()):
                 raise AssertionError(f"main {kind} seed {seed}: non-finite "
                                      f"image")
-            if tuple(u8.shape) != (batch, 512, 512, 3) or \
+            if tuple(u8.shape) != (batch, side, side, 3) or \
                     u8.dtype != torch.uint8:
                 raise AssertionError(f"main {kind}: uint8 {tuple(u8.shape)}")
             log(f"main: {kind} seed {seed}: {dt:.3f} s "
                 f"({'warm-up' if i == 0 else f'{dt / batch:.3f} s/image'}), "
-                f"launches K1 {launches[0]} K2 {launches[1]}, "
-                f"image mean {float(img.mean()):+.4f} std "
-                f"{float(img.std()):.4f}")
+                f"launches {launches}, image mean {float(img.mean()):+.4f} "
+                f"std {float(img.std()):.4f}")
             if i:
                 per_image.append(dt / batch)
         p50[kind] = float(np.median(per_image))
@@ -423,17 +742,22 @@ def phase_main(ctx):
     ctx["p50"] = p50
     log("main: p50 s/image after one warm-up: " + ", ".join(
         f"{k} {v:.4f}" for k, v in p50.items())
-        + f"; launches K1 {ctx['launches'][0]}, K2 {ctx['launches'][1]} "
-        f"(card: {card_line()})")
-    if min(ctx["launches"]) == 0:
+        + f"; launches {ctx['launches']} (card: {card_line()})")
+    if min(ctx["launches"].values()) == 0:
         raise AssertionError("main: a kernel of the path never launched")
-    for kind, rb in (("spatial", rb1), ("vanilla", None)):
-        profile_request(pipe, c1, gen, rb, kind, p50[kind])
+    for kind, conv_impl, rb, opts in (
+            ("spatial", "xla", rb1, None), ("vanilla", "xla", None, None),
+            ("spatial_pallas", "pallas", rb1, None),
+            ("spatial_pallas2", "pallas2", rb1, None),
+            ("hires", "xla", rb1, hires)):
+        profile_request(pipes[conv_impl], c1, gen, rb, kind, p50[kind], opts)
 
 
 KERNEL_GROUPS = (  # (group, test on the lower-cased kernel name)
     ("K1", lambda n: "attention_kernel" in n and "true>" in n),
     ("K2", lambda n: "attention_kernel" in n and "false>" in n),
+    ("K4", lambda n: "conv_direct_kernel" in n),
+    ("K5", lambda n: "conv_igemm_kernel" in n),
     ("conv", lambda n: "conv" in n or "fprop" in n or "dgrad" in n),
     ("gemm", lambda n: "gemm" in n or "nvjet" in n or "cutlass" in n),
     ("norm", lambda n: "norm" in n),
@@ -441,7 +765,8 @@ KERNEL_GROUPS = (  # (group, test on the lower-cased kernel name)
 )
 
 
-def profile_request(pipe, context, gen, region_biases, kind, p50_s):
+def profile_request(pipe, context, gen, region_biases, kind, p50_s,
+                    hires=None):
     """One batch-1 request under torch.profiler: the device's busy time (sum
     of kernel times) against the request's unprofiled p50 wall time, kernel
     launches, and device time by kernel group and by kernel. The profiler's
@@ -454,7 +779,8 @@ def profile_request(pipe, context, gen, region_biases, kind, p50_s):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        img = pipe.txt2img(context, gen, seed=99, region_biases=region_biases)
+        img = pipe.txt2img(context, gen, seed=99, region_biases=region_biases,
+                           hires=hires)
         pipe.to_uint8(img).cpu()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.key_averages()
@@ -477,27 +803,40 @@ def profile_request(pipe, context, gen, region_biases, kind, p50_s):
             f"x{e.count:<5d} {e.key[:110]}")
 
 
+KERNEL_LINE = {  # name, source, what "ms" and the other times are per
+    "K1": ("K1 region_attention", "region_attention.cu",
+           "the 16 launches of one SD1.5 512^2 UNet call on the spatial "
+           "path, bf16, cold L2; library = scaled_dot_product_attention"),
+    "K2": ("K2 flash_attention", "flash_attention.cu",
+           "the 16 self-attention launches of one SD1.5 512^2 UNet call, "
+           "bf16, cold L2; library = scaled_dot_product_attention"),
+    "K3": ("K3 flash_attention at the streaming shapes", "flash_attention.cu",
+           "one launch at B=2, L=S=16384, H=8, D=40 (the hires pass's "
+           "level-0 self-attention), bf16, cold L2; launches = K2's at that "
+           "shape; library = scaled_dot_product_attention"),
+    "K4": ("K4 conv_fused", "conv_fused.cu",
+           "the 44 launches of one SD1.5 512^2 UNet call, bf16, cold L2; "
+           "library = cuDNN conv2d+bias on the pre-activated input"),
+    "K5": ("K5 conv_fused_v2", "conv_fused_v2.cu",
+           "the 44 launches of one SD1.5 512^2 UNet call, bf16, cold L2; "
+           "library = cuDNN conv2d+bias on the pre-activated input"),
+}
+
+
 def kernels_line(ctx):
-    k = ctx["kernels"]
     out = []
-    for name, src, rep, launches in (
-            ("K1 region_attention", "region_attention.cu", K1_REPLACES,
-             ctx["launches"][0]),
-            ("K2 flash_attention", "flash_attention.cu", K2_REPLACES,
-             ctx["launches"][1])):
-        r = k[name[:2]]
+    for key, (name, src, per) in KERNEL_LINE.items():
+        r = ctx["kernels"][key]
         out.append({
             "name": name, "route": "cuda",
             "source": f"diffusionspatialcontrol_tpu_torch/csrc/{src}",
-            "replaces": rep, "launches": launches,
+            "replaces": REPLACES[key], "launches": ctx["launches"][key],
             "max_abs_err": r["err"][1], "max_abs_err_fp32": r["err"][0],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
-            "per": "the 16 launches of one SD1.5 512^2 UNet call on the "
-                   "spatial path, bf16, cold L2; library = "
-                   "scaled_dot_product_attention",
-            "shapes": r["shapes"]})
+            "library_ms": r["library_ms"], "per": per, "shapes": r["shapes"]})
+        if key == "K4":
+            out[-1]["launches_at_k4b_shapes"] = ctx["launches"]["K4b"]
     return json.dumps({"kernels": out})
 
 

@@ -18,6 +18,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops.kernels.conv_fused import (
+    fold_group_norm,
+    gn_silu_conv3x3,
+    gn_silu_conv3x3_v2,
+)
+
 
 def _uniform(generator: torch.Generator, shape, bound: float, dtype,
              device) -> torch.Tensor:
@@ -89,6 +95,43 @@ def conv2d(p, x: torch.Tensor, stride: int = 1,
         raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
     y = F.conv2d(xc, w, p["bias"].to(x.dtype), stride=stride, padding=pad)
     return y.permute(0, 2, 3, 1)
+
+
+CONV_IMPLS = ("xla", "pallas", "pallas2")
+
+
+def check_conv_impl(conv_impl: Optional[str]) -> str:
+    """The resnet conv path: ``None`` or "xla" (plain convs), "pallas" (K4)
+    or "pallas2" (K5). The JAX package's "xla_bf16" is not ported yet."""
+    conv_impl = conv_impl or "xla"
+    if conv_impl == "xla_bf16":
+        raise NotImplementedError("conv_impl='xla_bf16' is not ported yet")
+    if conv_impl not in CONV_IMPLS:
+        raise ValueError(f"conv_impl={conv_impl!r}: the port takes one of "
+                         f"{CONV_IMPLS}")
+    return conv_impl
+
+
+def resnet_fused(p, x: torch.Tensor, groups: int, eps: float,
+                 conv_impl: str, t: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """The resnet branch through the fused kernels ("pallas": K4, "pallas2":
+    K5), as the JAX resnets run it: GroupNorm folded into a per-(batch,
+    channel) affine, then norm + SiLU + conv3x3 (+ the time projection
+    ``t`` after conv1, + the shortcut after conv2) in one kernel each."""
+    fused = gn_silu_conv3x3_v2 if conv_impl == "pallas2" else gn_silu_conv3x3
+    # The kernels read NHWC contiguous. On the card a transformer's output
+    # is NCHW in memory (cuDNN's 1x1 proj_out conv returns that layout), so
+    # the resnets after a transformer copy it; the others copy nothing.
+    x = x.contiguous()
+    s1, b1 = fold_group_norm(p["norm1"], x, groups, eps)
+    h = fused(x, s1, b1, p["conv1"]["kernel"].to(x.dtype), p["conv1"]["bias"],
+              channel_bias=None if t is None else t.float())
+    s2, b2 = fold_group_norm(p["norm2"], h, groups, eps)
+    sc = (conv2d(p["conv_shortcut"], x, padding="VALID").contiguous()
+          if "conv_shortcut" in p else x)
+    return fused(h, s2, b2, p["conv2"]["kernel"].to(h.dtype),
+                 p["conv2"]["bias"], skip=sc)
 
 
 def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """UNet2DCondition for the SD1.x/2.x family (port of ``models/unet.py``).
 
 The main path of the JAX package's ``unet_apply``: time embedding, the fused
-per-resnet time projections, resnets on the ``conv_impl="xla"`` branch (plain
-convs), transformers with self-attention, region-biased or plain
-cross-attention and a GEGLU feed-forward, down/up sampling and skips.
+per-resnet time projections, resnets on the ``conv_impl`` branch the caller
+names ("xla": plain convs; "pallas"/"pallas2": the fused GN+SiLU+conv
+kernels K4/K5, see ``layers.resnet_fused``), transformers with
+self-attention, region-biased or plain cross-attention and a GEGLU
+feed-forward, down/up sampling and skips.
 Activations are NHWC; attention operands are (B, L, H, D).
 
 ``attn_impl`` takes the JAX package's kernel strings,
@@ -13,8 +15,7 @@ tensors). Any other value raises; there is no plain attention path for
 CUDA tensors.
 
 Not ported yet (passing them raises): FreeU, ControlNet and T2I residuals,
-IP-Adapter, heatmaps, TGATE caching, DeepCache and the fused-conv
-``conv_impl`` values.
+IP-Adapter, heatmaps, TGATE caching, DeepCache and ``conv_impl="xla_bf16"``.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from ..config import UNetConfig
 from ..ops.kernels.flash_attention import flash_attention_nlhd
 from ..ops.kernels.region_attention import region_attention_nlhd
 from .layers import (
+    check_conv_impl,
     conv2d,
     conv_init,
     group_norm,
@@ -36,6 +38,7 @@ from .layers import (
     linear,
     linear_init,
     norm_init,
+    resnet_fused,
     silu,
     timestep_embedding,
     upsample_nearest2x,
@@ -207,7 +210,9 @@ def _temb_projections(resnets, temb):
     return list(torch.split(t_all, [k.shape[0] for k in kernels], dim=1))
 
 
-def _resnet_apply(p, x, groups, eps, t):
+def _resnet_apply(p, x, groups, eps, t, conv_impl="xla"):
+    if conv_impl != "xla":
+        return resnet_fused(p, x, groups, eps, conv_impl, t)
     h = silu(group_norm(p["norm1"], x, groups, eps))
     h = conv2d(p["conv1"], h)
     h = h + t[:, None, None, :].to(h.dtype)
@@ -307,9 +312,7 @@ def unet_apply(params: Dict[str, Any], cfg: UNetConfig,
         raise NotImplementedError(
             f"not ported yet: {sorted(unsupported)} (FreeU, ControlNet, "
             f"T2I, IP-Adapter, DeepCache, TGATE and heatmaps come later)")
-    if conv_impl not in (None, "xla"):
-        raise NotImplementedError(
-            f"conv_impl={conv_impl!r}: only the plain conv path is ported")
+    conv_impl = check_conv_impl(conv_impl)
     flash_opts = flash_options(attn_impl)
     groups, eps_ = cfg.norm_num_groups, cfg.norm_eps
 
@@ -330,7 +333,7 @@ def unet_apply(params: Dict[str, Any], cfg: UNetConfig,
     for level, block in enumerate(params["down_blocks"]):
         for j in range(len(block["resnets"])):
             h = _resnet_apply(block["resnets"][j], h, groups, eps_,
-                              next(t_it))
+                              next(t_it), conv_impl)
             if block["attentions"]:
                 h = _transformer_apply(block["attentions"][j], cfg, h, cond,
                                        level, cfg.heads_at(level), flash_opts)
@@ -341,17 +344,19 @@ def unet_apply(params: Dict[str, Any], cfg: UNetConfig,
 
     mid = params["mid_block"]
     top = cfg.num_levels - 1
-    h = _resnet_apply(mid["resnet1"], h, groups, eps_, next(t_it))
+    h = _resnet_apply(mid["resnet1"], h, groups, eps_, next(t_it),
+                      conv_impl)
     h = _transformer_apply(mid["attention"], cfg, h, cond, top,
                            cfg.heads_at(top), flash_opts)
-    h = _resnet_apply(mid["resnet2"], h, groups, eps_, next(t_it))
+    h = _resnet_apply(mid["resnet2"], h, groups, eps_, next(t_it),
+                      conv_impl)
 
     for i, block in enumerate(params["up_blocks"]):
         level = cfg.num_levels - 1 - i
         for j in range(len(block["resnets"])):
             h = torch.cat([h, skips.pop()], dim=-1)
             h = _resnet_apply(block["resnets"][j], h, groups, eps_,
-                              next(t_it))
+                              next(t_it), conv_impl)
             if block["attentions"]:
                 h = _transformer_apply(block["attentions"][j], cfg, h, cond,
                                        level, cfg.heads_at(level), flash_opts)

@@ -1,5 +1,6 @@
 """AutoencoderKL (port of ``models/vae.py``): parameters of the encoder and
-decoder, and the decode path. NHWC activations.
+decoder, and the decode path. NHWC activations. The decoder's resnets take
+``conv_impl`` as the UNet's do ("xla", "pallas": K4, "pallas2": K5).
 
 Not ported yet: ``vae_encode`` (img2img / inpaint) and the asymmetric
 mask-conditioned decoder.
@@ -13,12 +14,14 @@ import torch
 
 from ..config import VAEConfig
 from .layers import (
+    check_conv_impl,
     conv2d,
     conv_init,
     group_norm,
     linear,
     linear_init,
     norm_init,
+    resnet_fused,
     silu,
     upsample_nearest2x,
 )
@@ -36,7 +39,9 @@ def _resnet_init(g, in_c, out_c, dtype, device):
     return p
 
 
-def _resnet_apply(p, x, groups):
+def _resnet_apply(p, x, groups, conv_impl="xla"):
+    if conv_impl != "xla":
+        return resnet_fused(p, x, groups, 1e-6, conv_impl)
     h = silu(group_norm(p["norm1"], x, groups, 1e-6))
     h = conv2d(p["conv1"], h)
     h = silu(group_norm(p["norm2"], h, groups, 1e-6))
@@ -127,20 +132,22 @@ def vae_init(g: torch.Generator, cfg: VAEConfig, dtype=torch.bfloat16,
     return {"encoder": enc, "decoder": dec}
 
 
-def vae_decode(params, cfg: VAEConfig, latents: torch.Tensor) -> torch.Tensor:
+def vae_decode(params, cfg: VAEConfig, latents: torch.Tensor,
+               conv_impl: str = "xla") -> torch.Tensor:
     """latents (B, h, w, 4), *scaled*; returns images (B, 8h, 8w, 3) in
     [-1, 1], fp32."""
+    conv_impl = check_conv_impl(conv_impl)
     dec = params["decoder"]
     g = cfg.norm_num_groups
     z = (latents / cfg.scaling_factor).to(dec["conv_in"]["kernel"].dtype)
     h = conv2d(dec["post_quant_conv"], z, padding="VALID")
     h = conv2d(dec["conv_in"], h)
-    h = _resnet_apply(dec["mid"]["resnet1"], h, g)
+    h = _resnet_apply(dec["mid"]["resnet1"], h, g, conv_impl)
     h = _attn_apply(dec["mid"]["attention"], h, g)
-    h = _resnet_apply(dec["mid"]["resnet2"], h, g)
+    h = _resnet_apply(dec["mid"]["resnet2"], h, g, conv_impl)
     for block in dec["up_blocks"]:
         for r in block["resnets"]:
-            h = _resnet_apply(r, h, g)
+            h = _resnet_apply(r, h, g, conv_impl)
         if "upsample" in block:
             h = conv2d(block["upsample"], upsample_nearest2x(h))
     h = silu(group_norm(dec["conv_norm_out"], h, g, 1e-6))

@@ -22,7 +22,8 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("region_attention", "flash_attention")
+SOURCES = ("region_attention", "flash_attention", "conv_fused",
+           "conv_fused_v2")
 
 _loaded: Dict[str, object] = {}
 

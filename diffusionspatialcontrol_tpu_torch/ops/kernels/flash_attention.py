@@ -14,13 +14,21 @@ before an fp32-accumulated QK^T; both versions here always form QK^T from
 the operands' own values in fp32, so the UNet's ``+qkbf16`` suffix selects
 nothing (see ``models/unet.py``).
 
+K2 is also the counterpart of K3, ``flash_attention.py:_stream_kernel``:
+the JAX package leaves its single-pass kernel for that streaming body when
+K/V outgrow VMEM (S > 12160 at D <= 128, e.g. the level-0 self-attention at
+1024^2, L = S = 16384), and ``csrc/attention.cuh`` already streams K/V
+tiles with an online softmax at every S.
+
 Dispatch: CPU tensors take ``flash_attention_plain``; CUDA tensors launch
-the kernel or raise. ``flash_attention_nlhd.launches`` counts launches; the
-launcher adds to it, so every launch counts, whoever calls it.
+the kernel or raise. ``flash_attention_nlhd.launches`` counts launches and
+``flash_attention_nlhd.shapes`` tallies them by (L, S, D); the launcher
+adds to both, so every launch counts, whoever calls it.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -73,6 +81,7 @@ def flash_attention_kernel(q, k, v, pv_bf16: bool = False,
              stream_arg(q))
     raise_on_error(err, "flash_attention")
     flash_attention_nlhd.launches += 1
+    flash_attention_nlhd.shapes[(l, k.shape[1], d)] += 1
     return out
 
 
@@ -85,3 +94,4 @@ def flash_attention_nlhd(q, k, v, pv_bf16: bool = False,
 
 
 flash_attention_nlhd.launches = 0
+flash_attention_nlhd.shapes = collections.Counter()

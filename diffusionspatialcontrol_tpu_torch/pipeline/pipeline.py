@@ -1,8 +1,10 @@
-"""txt2img with region control (port of ``pipeline/pipeline.py``).
+"""txt2img with region control and hires fix (port of
+``pipeline/pipeline.py``).
 
 ``StableDiffusionTorch`` is the counterpart of ``StableDiffusionTPU`` on the
 main path: prompt and region encoding, the sigma-space denoiser with CFG,
-the DPM++ 2M loop on Karras sigmas, VAE decode and uint8 conversion.
+the DPM++ 2M loop on Karras sigmas, VAE decode and uint8 conversion; hires
+fix (latent upscale, then img2img on the latents at the target size).
 
 Math parity notes (as in the JAX package):
   * initial latents are scaled by (sigma_0^2 + 1)^0.5;
@@ -11,17 +13,20 @@ Math parity notes (as in the JAX package):
     CompVisDenoiser / CompVisVDenoiser do, with c_in = 1/sqrt(sigma^2+1) and
     the fractional timestep from log-sigma interpolation.
 
-Randomness: each sample draws its initial latents from its own
-``torch.Generator``, so a sample's result depends only on its seed, not on
-the batch it rides in. The streams differ from JAX's threefry streams; tests
-pass ``latents=`` to compare the two packages.
+Randomness: each sample draws its initial latents (and img2img its noise)
+from its own CPU ``torch.Generator``, so a sample's result depends only on
+its seed, not on the batch it rides in or the device. The streams differ
+from JAX's threefry streams; tests pass ``latents=`` and patch
+``initial_noise`` to compare the two packages.
 
-Not ported yet: img2img, inpaint, hires, the other 21 solvers, ControlNet,
-T2I-Adapter, IP-Adapter, chunked sampling and the speed modes.
+Not ported yet: img2img from images (``vae_encode``), inpaint, the other 21
+solvers and hires sampler overrides, ControlNet, T2I-Adapter, IP-Adapter,
+chunked sampling, latent history and the speed modes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -29,8 +34,10 @@ import torch
 
 from ..config import GenerationConfig, ModelConfig
 from ..device import resolve_device
+from ..models.layers import check_conv_impl
 from ..models.unet import RegionState, UNetCond, flash_options, unet_apply
 from ..models.vae import vae_decode
+from ..ops.resize import resize_latents
 from ..samplers import schedules, solvers
 
 SeedT = Union[int, Sequence[int]]
@@ -76,6 +83,7 @@ def make_denoise_fn(
     guidance_rescale: float = 0.0,
     attn_impl: str = "pallas",
     compute_dtype=torch.bfloat16,
+    conv_impl: str = "xla",
 ):
     """The sigma-space denoiser D(x; sigma); sigma is a 0-d fp32 tensor."""
     do_cfg = guidance_scale > 1.0
@@ -96,7 +104,7 @@ def make_denoise_fn(
                   else RegionState(region_biases, sigma))
         out = unet_apply(params["unet"], model_cfg.unet, model_in, t_b,
                          UNetCond(context=context, region=region),
-                         attn_impl=attn_impl).float()
+                         attn_impl=attn_impl, conv_impl=conv_impl).float()
         if model_cfg.prediction_type == "v_prediction":
             c_skip = 1.0 / (sigma ** 2 + 1.0)
             c_out = -sigma / torch.sqrt(sigma ** 2 + 1.0)
@@ -126,25 +134,57 @@ def to_uint8(images: torch.Tensor) -> torch.Tensor:
 def initial_noise(seeds: Sequence[int], shape: Tuple[int, ...],
                   device: torch.device) -> torch.Tensor:
     """Standard-normal latents (len(seeds),) + shape, one generator a
-    sample."""
+    sample: txt2img's initial latents and img2img's noise. Drawn on the
+    CPU, so that a seed gives the same noise on every device."""
     draws = []
     for s in seeds:
-        g = torch.Generator(device=device).manual_seed(int(s))
-        draws.append(torch.randn(shape, generator=g, device=device,
-                                 dtype=torch.float32))
-    return torch.stack(draws)
+        g = torch.Generator().manual_seed(int(s))
+        draws.append(torch.randn(shape, generator=g, dtype=torch.float32))
+    return torch.stack(draws).to(device)
+
+
+def _seed_list(seed: SeedT, batch: int) -> List[int]:
+    """One seed a sample: a list as given, or seed, seed + 1, ..."""
+    if isinstance(seed, (list, tuple, np.ndarray)):
+        return [int(s) for s in seed]
+    return [int(seed) + i for i in range(batch)]
+
+
+def _next_seed(seed: SeedT) -> SeedT:
+    """seed + 1, elementwise for per-sample seed lists: the hires pass's
+    seed, as in the JAX package."""
+    if isinstance(seed, (list, tuple, np.ndarray)):
+        return [int(s) + 1 for s in seed]
+    return int(seed) + 1
+
+
+def _check_hires(hires: dict) -> None:
+    """Raise on the hires options the port does not take yet."""
+    if hires.get("sampler") not in (None, "dpmpp_2m"):
+        raise NotImplementedError(
+            f"hires sampler {hires['sampler']!r} is not ported yet; the "
+            f"hires pass runs 'dpmpp_2m'")
+    if hires.get("schedule") not in (None, "karras"):
+        raise NotImplementedError(
+            f"hires schedule {hires['schedule']!r} is not ported yet")
+    if hires.get("rebuild_extras") is not None:
+        raise NotImplementedError(
+            "hires['rebuild_extras'] is not ported yet (no extras are)")
 
 
 class StableDiffusionTorch:
-    """txt2img with optional region control.
+    """txt2img with optional region control and hires fix.
 
     ``device`` defaults to CUDA and raises when there is none; CPU runs pass
     ``device="cpu"``. ``attn_impl`` takes the JAX package's kernel strings,
     "pallas[+qkbf16][+pvbf16][+exp2]" (see ``models.unet.flash_options``);
-    anything else raises."""
+    ``conv_impl`` the resnet conv path, "xla" (the default: plain convs),
+    "pallas" (K4) or "pallas2" (K5), for the UNet and the VAE decoder alike.
+    Anything else raises."""
 
     def __init__(self, model_cfg: ModelConfig, params: Dict[str, Any],
                  tokenizer=None, attn_impl: str = "pallas",
+                 conv_impl: Optional[str] = None,
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
@@ -152,6 +192,7 @@ class StableDiffusionTorch:
         self.tokenizer = tokenizer
         flash_options(attn_impl)  # raises on a string the port does not take
         self.attn_impl = attn_impl
+        self.conv_impl = check_conv_impl(conv_impl)
         self.sigma_table = schedules.ddpm_sigma_table(model_cfg)
         self.log_sigma_table = torch.tensor(
             np.log(self.sigma_table), dtype=torch.float32, device=self.device)
@@ -201,11 +242,26 @@ class StableDiffusionTorch:
         return schedules.get_sigmas(self.model_cfg, gen.num_inference_steps,
                                     gen.schedule)
 
+    def _sample(self, x, context, region_biases, sigmas, gen, decode,
+                uint8_output):
+        denoise = make_denoise_fn(
+            self.params, self.model_cfg, context.to(self.device),
+            region_biases, self.log_sigma_table, gen.guidance_scale,
+            gen.guidance_rescale, self.attn_impl, compute_dtype=gen.dtype,
+            conv_impl=self.conv_impl)
+        x = solvers.sample_dpmpp_2m(denoise, x, sigmas)
+        if not decode:
+            return x
+        images = vae_decode(self.params["vae"], self.model_cfg.vae, x,
+                            conv_impl=self.conv_impl)
+        return to_uint8(images) if uint8_output else images
+
     @torch.inference_mode()
     def txt2img(self, context: torch.Tensor, gen: GenerationConfig,
                 seed: SeedT = 0, region_biases=None, batch_size: int = 1,
                 decode: bool = True, latents: Optional[torch.Tensor] = None,
-                uint8_output: bool = False, **unsupported):
+                uint8_output: bool = False, hires: Optional[dict] = None,
+                **unsupported):
         """txt2img on a pre-encoded context. Returns images (B, H, W, 3),
         fp32 in [-1, 1] (uint8 with ``uint8_output``), or the final latents
         with ``decode=False``.
@@ -213,16 +269,24 @@ class StableDiffusionTorch:
         ``seed``: an int, or a list with one seed per sample. An int seed
         with ``batch_size`` B seeds the samples with seed, seed+1, ...
         ``latents``: (B, h, w, 4) standard-normal initial latents to use
-        instead of the seeded draw; they are scaled by sqrt(sigma_0^2+1)."""
+        instead of the seeded draw; they are scaled by sqrt(sigma_0^2+1).
+
+        ``hires``: optional dict(scale=2.0, strength=0.6, steps=None,
+        mode="bilinear", antialias=False, region_state=None), as in the JAX
+        package: the base pass's latents are resized by ``scale`` (modes of
+        ``ops.resize``) and refined by ``img2img`` at the target size, with
+        the seed ``_next_seed(seed)``. ``region_state`` = (states, prompt
+        ids, num_images_per_prompt) re-encodes the region map at the target
+        size; without it the hires pass runs without region control. The
+        ``uint8_output`` flag applies to the hires pass's images."""
         if any(v not in (None, False) for v in unsupported.values()):
             raise NotImplementedError(
-                f"not ported yet: {sorted(unsupported)} (hires, extras and "
-                f"history come with later slices)")
+                f"not ported yet: {sorted(unsupported)} (extras and history "
+                f"come with later slices)")
+        if hires is not None:
+            _check_hires(hires)
         sigmas = self._schedule(gen)
-        if isinstance(seed, (list, tuple, np.ndarray)):
-            seeds = [int(s) for s in seed]
-        else:
-            seeds = [int(seed) + i for i in range(batch_size)]
+        seeds = _seed_list(seed, batch_size)
         shape = (gen.latent_height, gen.latent_width, 4)
         if latents is None:
             latents = initial_noise(seeds, shape, self.device)
@@ -230,15 +294,58 @@ class StableDiffusionTorch:
             latents = torch.as_tensor(latents, dtype=torch.float32,
                                       device=self.device)
         x = latents * float(np.sqrt(sigmas[0] ** 2 + 1.0))
+        out = self._sample(x, context, region_biases, sigmas, gen,
+                           decode and hires is None, uint8_output)
+        if hires is None:
+            return out
 
-        denoise = make_denoise_fn(
-            self.params, self.model_cfg, context.to(self.device),
-            region_biases, self.log_sigma_table, gen.guidance_scale,
-            gen.guidance_rescale, self.attn_impl, compute_dtype=gen.dtype)
-        x = solvers.sample_dpmpp_2m(denoise, x, sigmas)
-        if not decode:
-            return x
-        images = vae_decode(self.params["vae"], self.model_cfg.vae, x)
-        return to_uint8(images) if uint8_output else images
+        scale = float(hires.get("scale", 2.0))
+        new_h = int(gen.height * scale) // 8
+        new_w = int(gen.width * scale) // 8
+        up = resize_latents(out, new_h, new_w,
+                            mode=hires.get("mode", "bilinear"),
+                            antialias=bool(hires.get("antialias", False)))
+        gen_hr = dataclasses.replace(
+            gen, height=new_h * 8, width=new_w * 8,
+            num_inference_steps=hires.get("steps") or gen.num_inference_steps)
+        hr_biases = None
+        if hires.get("region_state") is not None:
+            states, ids, nipp = hires["region_state"]
+            hr_biases = self.encode_region(
+                states, ids, height=gen_hr.height, width=gen_hr.width,
+                num_images_per_prompt=nipp,
+                do_cfg=gen_hr.guidance_scale > 1.0)
+        return self.img2img(context, up, gen_hr,
+                            strength=float(hires.get("strength", 0.6)),
+                            seed=_next_seed(seed), region_biases=hr_biases,
+                            decode=decode, uint8_output=uint8_output)
+
+    @torch.inference_mode()
+    def img2img(self, context: torch.Tensor, init_latents: torch.Tensor,
+                gen: GenerationConfig, strength: float = 0.8,
+                seed: SeedT = 0, region_biases=None, decode: bool = True,
+                uint8_output: bool = False, **unsupported):
+        """img2img on latents: the schedule is cut by ``strength`` and the
+        init latents are noised to its first sigma. ``init_latents`` are
+        (B, h, w, 4) *scaled* latents; ``seed`` as in ``txt2img``. Returns
+        what ``txt2img`` returns."""
+        if any(v not in (None, False) for v in unsupported.values()):
+            raise NotImplementedError(
+                f"not ported yet: {sorted(unsupported)} (extras and history "
+                f"come with later slices)")
+        sigmas = self._schedule(gen)
+        steps = gen.num_inference_steps
+        t_start = max(steps - min(int(steps * strength), steps), 0)
+        sigma_sched = sigmas[t_start:]
+        init = torch.as_tensor(init_latents, dtype=torch.float32,
+                               device=self.device)
+        seeds = _seed_list(seed, init.shape[0])
+        if len(seeds) != init.shape[0]:
+            raise ValueError(f"img2img seed list length {len(seeds)} != "
+                             f"batch {init.shape[0]}")
+        noise = initial_noise(seeds, tuple(init.shape[1:]), self.device)
+        x = init + noise * float(np.sqrt(sigma_sched[0] ** 2 + 1.0))
+        return self._sample(x, context, region_biases, sigma_sched, gen,
+                            decode, uint8_output)
 
     to_uint8 = staticmethod(to_uint8)

@@ -115,3 +115,91 @@ def test_wrappers_count_and_refuse(dev):
     with pytest.raises(TypeError):
         k2.flash_attention_nlhd(q.half(), k.half(), v.half())
     assert k2.flash_attention_nlhd.launches == before + 2
+
+
+# ---------------------------------------------------------------------------
+# K4 and K5: the fused GroupNorm-affine + SiLU + conv3x3. Tolerances: fp32
+# 5e-5 absolute (tests/test_conv_fused.py), bf16 as above.
+# ---------------------------------------------------------------------------
+
+
+def _conv_operands(dev, b, h, w, c_in, c_out, dtype, temb, skip, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, h, w, c_in, device=dev, generator=g)
+    scale = 1 + 0.1 * torch.randn(b, c_in, device=dev, generator=g)
+    bias = 0.1 * torch.randn(b, c_in, device=dev, generator=g)
+    kern = (torch.rand(c_out, c_in, 3, 3, device=dev, generator=g) * 2 - 1) \
+        / (9 * c_in) ** 0.5
+    cb = 0.1 * torch.randn(c_out, device=dev, generator=g)
+    xb = torch.randn(b, c_out, device=dev, generator=g) if temb else None
+    sk = torch.randn(b, h, w, c_out, device=dev, generator=g) if skip \
+        else None
+    return (x.to(dtype), scale, bias,
+            kern.to(dtype).contiguous(memory_format=torch.channels_last), cb,
+            xb, None if sk is None else sk.to(dtype))
+
+
+CONV_SHAPES = [(2, 12, 10, 32, 48, True, True), (1, 7, 13, 24, 40, True, True),
+               (1, 10, 6, 640, 32, True, False), (1, 33, 17, 16, 136, False,
+                                                  True),
+               (2, 64, 64, 320, 320, True, False), (1, 3, 130, 64, 8, False,
+                                                    False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", ["K4", "K5"])
+@pytest.mark.parametrize("shape", CONV_SHAPES,
+                         ids=lambda s: "x".join(map(str, s[:5])))
+def test_conv_kernels_match_plain(dev, version, shape):
+    from diffusionspatialcontrol_tpu_torch.ops.kernels import conv_fused as kc
+
+    launch = {"K4": kc.gn_silu_conv3x3_kernel,
+              "K5": kc.gn_silu_conv3x3_v2_kernel}[version]
+    b, h, w, c_in, c_out, temb, skip = shape
+    ops = _conv_operands(dev, b, h, w, c_in, c_out, torch.float32, temb, skip)
+    torch.testing.assert_close(launch(*ops), kc.gn_silu_conv3x3_plain(*ops),
+                               rtol=0, atol=5e-5)
+    ops = _conv_operands(dev, b, h, w, c_in, c_out, torch.bfloat16, temb,
+                         skip, seed=1)
+    _assert_bf16_close(launch(*ops), kc.gn_silu_conv3x3_plain(*ops).float())
+
+
+@pytest.mark.cuda
+def test_conv_wrappers_count_and_refuse(dev):
+    from diffusionspatialcontrol_tpu_torch.ops.kernels import conv_fused as kc
+
+    ops = _conv_operands(dev, 1, 8, 8, 16, 16, torch.float32, True, True)
+    before = (kc.gn_silu_conv3x3.launches, kc.gn_silu_conv3x3_v2.launches)
+    kc.gn_silu_conv3x3(*ops)
+    kc.gn_silu_conv3x3_v2_kernel(*ops)  # the launcher itself counts too
+    assert (kc.gn_silu_conv3x3.launches,
+            kc.gn_silu_conv3x3_v2.launches) == (before[0] + 1, before[1] + 1)
+    assert kc.gn_silu_conv3x3.shapes[(1, 8, 8, 16, 16)] >= 1
+    x, scale, bias, kern, cb, xb, sk = ops
+    with pytest.raises(ValueError):  # C_in not a multiple of 8
+        kc.gn_silu_conv3x3(x[..., :12].contiguous(), scale[:, :12],
+                           bias[:, :12], kern[:, :12].contiguous(
+                               memory_format=torch.channels_last), cb)
+    with pytest.raises(ValueError):  # OIHW contiguous, not channels_last
+        kc.gn_silu_conv3x3_v2(x, scale, bias, kern.contiguous(), cb)
+    with pytest.raises(TypeError):
+        kc.gn_silu_conv3x3(x.half(), scale, bias, kern.half(), cb)
+    with pytest.raises(ValueError):  # a CUDA tensor never reaches the plain
+        kc.gn_silu_conv3x3(x, scale.cpu(), bias, kern, cb)
+    assert (kc.gn_silu_conv3x3.launches,
+            kc.gn_silu_conv3x3_v2.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_k2_at_the_k3_shape_matches_plain(dev):
+    """K2 at L = S = 16384 (the hires pass's level-0 self-attention, where
+    the JAX package streams), against the plain version on 2048 query rows
+    at a time, and its per-shape tally."""
+    q, k, v = _qkv(dev, 2, 16384, 16384, 8, 40, torch.bfloat16, seed=4)
+    before = k2.flash_attention_nlhd.shapes[(16384, 16384, 40)]
+    got = k2.flash_attention_nlhd(q, k, v)
+    assert k2.flash_attention_nlhd.shapes[(16384, 16384, 40)] == before + 1
+    kf, vf = k.float(), v.float()
+    for i in range(0, 16384, 2048):
+        _assert_bf16_close(got[:, i:i + 2048], k2.flash_attention_plain(
+            q[:, i:i + 2048].float(), kf, vf))

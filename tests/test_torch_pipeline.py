@@ -1,12 +1,15 @@
-"""The PyTorch port's text front end, region map, schedule, solver and the
-whole txt2img slice against the JAX package on the CPU.
+"""The PyTorch port's text front end, region map, schedule, solver, latent
+resize and the whole txt2img and hires slices against the JAX package on
+the CPU.
 
 The slice test runs tiny-config txt2img in fp32 on both packages (JAX with
 ``attn_impl="xla"``, the port on its kernel path, i.e. the kernels' plain
 versions on CPU tensors) at 64x64, 4 DPM++ 2M steps, CFG 7.5 and a
 two-phrase region map, from the same injected latents. Tolerance: the fp32
 images agree to 1e-4 and the uint8 images within +-1 (a value that lands on
-a rounding boundary may round either way).
+a rounding boundary may round either way). The hires test adds a 2x latent
+upscale and img2img at 128x128, with the hires pass's noise patched to the
+same numpy draw on both sides.
 """
 
 import jax
@@ -18,6 +21,8 @@ import torch
 from diffusionspatialcontrol_tpu import config as jcfg
 from diffusionspatialcontrol_tpu.models import factory as jfactory
 from diffusionspatialcontrol_tpu.ops import region_map as jregion
+from diffusionspatialcontrol_tpu.ops import resize as jresize
+from diffusionspatialcontrol_tpu.pipeline import pipeline as jpipeline
 from diffusionspatialcontrol_tpu.pipeline.pipeline import StableDiffusionTPU
 from diffusionspatialcontrol_tpu.samplers import schedules as jsched
 from diffusionspatialcontrol_tpu.samplers import solvers as jsolvers
@@ -26,6 +31,8 @@ from diffusionspatialcontrol_tpu_torch import config as tcfg
 from diffusionspatialcontrol_tpu_torch.convert.from_jax import params_from_jax
 from diffusionspatialcontrol_tpu_torch.models import factory as tfactory
 from diffusionspatialcontrol_tpu_torch.ops import region_map as tregion
+from diffusionspatialcontrol_tpu_torch.ops import resize as tresize
+from diffusionspatialcontrol_tpu_torch.pipeline import pipeline as tpipeline
 from diffusionspatialcontrol_tpu_torch.pipeline.pipeline import (
     StableDiffusionTorch,
     initial_noise,
@@ -207,6 +214,59 @@ def test_txt2img_slice_matches_jax(params):
     assert np.abs(got_u8.astype(int) - want_u8.astype(int)).max() <= 1
 
 
+@pytest.mark.parametrize("name", tresize.UPSCALE_MODES)
+def test_resize_latents_matches_jax(name):
+    """Every hires upscale mode at 2x (the hires default) and at 1.5x, to
+    fp32 rounding: the port uses jax.image's own weights."""
+    mode, antialias = tresize.parse_upscale_mode(name)
+    assert (mode, antialias) == jresize.parse_upscale_mode(name)
+    x = np.random.default_rng(4).standard_normal((2, 8, 12, 4)).astype(
+        np.float32)
+    for new_h, new_w in ((16, 24), (12, 18)):
+        want = np.asarray(jresize.resize_latents(
+            jnp.asarray(x), new_h, new_w, mode=mode, antialias=antialias))
+        got = tresize.resize_latents(torch.from_numpy(x), new_h, new_w,
+                                     mode=mode, antialias=antialias)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=5e-6)
+
+
+def test_hires_slice_matches_jax(params, monkeypatch):
+    """txt2img(hires=...) 64^2 -> 128^2 with the region map re-encoded at
+    the target size: 4 base steps, then img2img at strength 0.6 (2 steps)."""
+    jp, tp = params
+    jpipe = StableDiffusionTPU(jcfg.tiny_config(), jp,
+                               tokenizer=jtok.HashTokenizer(),
+                               attn_impl="xla")
+    tpipe = StableDiffusionTorch(tcfg.tiny_config(), tp,
+                                 tokenizer=ttok.HashTokenizer(),
+                                 device="cpu")
+    rng = np.random.default_rng(5)
+    lat = rng.standard_normal((1, 8, 8, 4)).astype(np.float32)
+    noise = rng.standard_normal((1, 16, 16, 4)).astype(np.float32)
+    monkeypatch.setattr(jpipeline, "_keyed_normal",
+                        lambda k, shape, dtype=jnp.float32: jnp.asarray(noise))
+    monkeypatch.setattr(tpipeline, "initial_noise",
+                        lambda seeds, shape, device: torch.from_numpy(noise))
+    state = _two_masks(64, 64)
+    out = []
+    for pipe, gen_cls, dt, arr in (
+            (jpipe, jcfg.GenerationConfig, jnp.float32, jnp.asarray),
+            (tpipe, tcfg.GenerationConfig, torch.float32, torch.from_numpy)):
+        ctx, ids = pipe.encode_prompt([PROMPT], [NEG])
+        gen = gen_cls(height=64, width=64, num_inference_steps=4, dtype=dt)
+        out.append(pipe.txt2img(
+            ctx, gen, seed=3, latents=arr(lat),
+            region_biases=pipe.encode_region([state], ids, 64, 64),
+            hires={"scale": 2.0, "strength": 0.6,
+                   "region_state": ([state], ids, 1)}))
+    want, got = np.asarray(out[0]), out[1]
+    assert got.shape == (1, 128, 128, 3) and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    want_u8 = np.round(np.clip(want * 0.5 + 0.5, 0, 1) * 255).astype(np.uint8)
+    got_u8 = tpipe.to_uint8(got).numpy()
+    assert np.abs(got_u8.astype(int) - want_u8.astype(int)).max() <= 1
+
+
 def test_seed_list_is_batch_invariant():
     """Each sample's latents come from its own generator: a batch of seeds
     gives what the seeds give one at a time."""
@@ -238,7 +298,11 @@ def test_unported_paths_raise(params):
     ctx, _ = pipe.encode_prompt([PROMPT], [NEG])
     gen = tcfg.GenerationConfig(height=32, width=32, num_inference_steps=2)
     with pytest.raises(NotImplementedError):
-        pipe.txt2img(ctx, gen, hires={"scale": 2.0})
+        pipe.txt2img(ctx, gen, hires={"scale": 2.0}, return_history=True)
+    with pytest.raises(NotImplementedError):
+        pipe.txt2img(ctx, gen, hires={"scale": 2.0, "sampler": "euler"})
+    with pytest.raises(NotImplementedError):
+        pipe.txt2img(ctx, gen, hires={"rebuild_extras": lambda g: None})
     with pytest.raises(NotImplementedError):
         pipe.txt2img(ctx, tcfg.GenerationConfig(sampler="euler"))
 

@@ -72,6 +72,24 @@ def test_unet_apply_matches_jax(unet_params, region, attn_impl):
             k2.flash_attention_nlhd.launches) == counts
 
 
+@pytest.mark.parametrize("conv_impl", ["pallas", "pallas2"])
+def test_unet_fused_convs_match_jax_xla(unet_params, conv_impl):
+    """The whole tiny UNet with its resnets on K4/K5's plain version against
+    the JAX package's unfused ``xla`` path, at the tolerance the JAX package
+    holds its own fused path to (tests/test_conv_fused.py: 2e-4, rtol
+    1e-3)."""
+    jp, tp = unet_params
+    x, ctx, t, _ = _inputs(1)
+    want = np.asarray(_jax_unet(jp, jcfg.tiny_config().unet, jnp.asarray(x),
+                                jnp.asarray(t),
+                                junet.UNetCond(context=jnp.asarray(ctx))))
+    got = tunet.unet_apply(tp, tcfg.tiny_config().unet, torch.from_numpy(x),
+                           torch.from_numpy(t),
+                           tunet.UNetCond(context=torch.from_numpy(ctx)),
+                           conv_impl=conv_impl)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-3, atol=2e-4)
+
+
 def test_unet_rejects_unported_options(unet_params):
     _, tp = unet_params
     x, ctx, t, _ = _inputs(2)
@@ -81,7 +99,9 @@ def test_unet_rejects_unported_options(unet_params):
     with pytest.raises(NotImplementedError):
         tunet.unet_apply(*args, freeu=object())
     with pytest.raises(NotImplementedError):
-        tunet.unet_apply(*args, conv_impl="pallas")
+        tunet.unet_apply(*args, conv_impl="xla_bf16")
+    with pytest.raises(ValueError):
+        tunet.unet_apply(*args, conv_impl="cudnn")
 
 
 @pytest.mark.parametrize("attn_impl", ["xla", "pallas+bogus", "flash"])
