@@ -8,14 +8,17 @@ result line:
 1. build: compile every CUDA source of the port with nvcc (one process per
    source, all started together) and print the card's name and power limit;
 2. kernels: K1 (region attention) and K2 (attention) against their plain
-   PyTorch versions at every shape the SD1.5 512^2 main path gives them;
+   PyTorch versions at every shape the SD1.5 512^2 main path gives them,
+   and K1 at the S of chunked prompts (154, 231, 308) at every level;
    K2 at the two shapes where the JAX package streams (K3: the level-0
    self-attention at 1024^2, L = 16384, and at 1920x1088, L = 32640); K4
    and K5 (the fused GroupNorm+SiLU+conv3x3) at every resnet-conv shape of
    the UNet and the VAE decoder at 512^2 and 1024^2. Each with its time
-   beside the plain version's, the least time the card could take (bound)
-   and one library call as a yardstick (``library_ms``: SDPA for
-   attention, cuDNN's conv for K4/K5; the port never calls them);
+   beside the plain version's, the least time the card could take (bound;
+   the log lines of attention also give the time of its exps alone, and
+   K2's self-attentions the times of its three other option instances) and
+   one library call as a yardstick (``library_ms``: SDPA for attention,
+   cuDNN's conv for K4/K5; the port never calls them);
 3. tiny: the tiny config's txt2img (fp32, 64x64, 4 steps, with and without a
    two-phrase region map, the same weights and latents) on the card against
    the port on the CPU, where the kernels' plain versions run; the same
@@ -35,13 +38,17 @@ Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.
 
 ``--phases`` runs a subset (for example ``--phases build,kernels``); the
-result lines are printed only when every phase ran.
+result lines are printed only when every phase ran. ``--tree DIR`` runs
+those phases of another checkout's chip_smoke.py (a parent commit unpacked
+with ``git archive``) with this file's timer, so that two trees' kernel
+times are taken alike.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -66,6 +73,12 @@ PER_UNET = sum(n for _, _, n in LEVELS)  # 16 transformers
 # the operand type (bf16 on the tensor cores, fp32 on the CUDA cores).
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# Softmax exps: 16 special-function results a clock per SM (the
+# FlashAttention-3 paper's figure) x 132 SMs x ~1.83 GHz. Attention at
+# D = 40 takes longer in exps than in MMAs; the log lines give this time
+# beside the bytes-or-operations bound of the result line.
+PEAK_EXPS = 3.9e12
+CHUNKED_TEXT = (154, 231, 308)  # S of 2, 3 and 4 prompt chunks
 
 # Where the JAX package streams K/V (K3): the level-0 self-attention at
 # 1024^2 (the hires pass) and at 1920x1088 (kernel check only); B, H, D as
@@ -113,7 +126,13 @@ def check_close(name, got, want, rtol, atol) -> float:
 class ColdTimer:
     """Median device time of one call, with the 50 MB L2 cache flushed
     before each call (the main path finds its operands mostly evicted by
-    the convolutions in between), timed with CUDA events."""
+    the convolutions in between), timed with CUDA events. A spin kernel of
+    about half a millisecond after the flush keeps the card busy while the
+    host enqueues the call, so the events bracket the call's kernels and
+    not the host's time to launch them (tens of microseconds of Python a
+    call, which a small kernel would otherwise be charged with)."""
+
+    HOLD_CYCLES = 1_000_000
 
     def __init__(self, device):
         self.flush = torch.empty(128 << 20, dtype=torch.uint8, device=device)
@@ -124,6 +143,7 @@ class ColdTimer:
         times = []
         for _ in range(reps):
             self.flush.zero_()
+            torch.cuda._sleep(self.HOLD_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -208,6 +228,26 @@ def bound(b, h, l, s, d, dtype, bias: bool):
     return 1e3 * max(t_bytes, t_ops), t_bytes, t_ops
 
 
+def exp_ms(b, h, l, s):
+    """ms of the B*H*L*S exps of a softmax at the card's exp rate."""
+    return 1e3 * b * h * l * s / PEAK_EXPS
+
+
+def log_option_times(tag, timer, q, k, v, reps: int = 10):
+    """Times K2's other three instances (pv_bf16: P rounded to bf16, one
+    P.V product; use_exp2: one ex2.approx an exp) on the same operands."""
+    from diffusionspatialcontrol_tpu_torch.ops.kernels import flash_attention as k2
+
+    times = []
+    for label, opts in (("+pvbf16", {"pv_bf16": True}),
+                        ("+exp2", {"use_exp2": True}),
+                        ("+pvbf16+exp2", {"pv_bf16": True, "use_exp2": True})):
+        ms = timer(lambda: k2.flash_attention_nlhd(q, k, v, **opts),
+                   reps=reps)
+        times.append(f"{label} {ms:.4f} ms")
+    log(f"kernels: {tag} options: " + ", ".join(times))
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -251,7 +291,7 @@ def phase_kernels(ctx):
     dev = ctx["device"]
     g = torch.Generator(device=dev).manual_seed(0)
     timer = ColdTimer(dev)
-    rows = {"K1": [], "K2": [], "K2 cross": []}
+    rows = {"K1": [], "K1 chunked": [], "K2": [], "K2 cross": []}
     errs = {"K1": [0.0, 0.0], "K2": [0.0, 0.0]}  # [fp32, bf16]
 
     def sdpa(q, k, v, mask=None):
@@ -264,8 +304,10 @@ def phase_kernels(ctx):
         cases.append(("K2", l, l, d, n))          # self-attention
         cases.append(("K2 cross", l, TEXT, d, n))  # cross-attention, vanilla
         cases.append(("K1", l, TEXT, d, n))       # cross-attention, spatial
+    for l, d, _ in LEVELS:  # longer prompts: 0 launches a 77-token request
+        cases += [("K1 chunked", l, s, d, 0) for s in CHUNKED_TEXT]
     for name, l, s, d, n in cases:
-        kern = "K1" if name == "K1" else "K2"
+        kern = name[:2]
         tag = f"{name} L={l} S={s} D={d}"
         q, k, v = _qkv(g, BATCH, l, s, HEADS, d, torch.float32, dev)
         w = torch.randn(BATCH, l, s, generator=g, device=dev)
@@ -310,7 +352,10 @@ def phase_kernels(ctx):
             "max_abs_err_fp32": e32, "max_abs_err_bf16": e16})
         log(f"kernels: {tag}: fp32 err {e32:.2e}, bf16 err {e16:.2e}; "
             f"bf16 {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
-            f"ms, bound {b_ms:.4f} ms ({rows[name][-1]['bound_by']})")
+            f"ms, bound {b_ms:.4f} ms ({rows[name][-1]['bound_by']}), exps "
+            f"{exp_ms(BATCH, HEADS, l, s):.4f} ms")
+        if name == "K2":
+            log_option_times(tag, timer, qb, kb, vb)
         del q, k, v, qb, kb, vb, q16, k16, v16, w, out, want
 
     # K1's bias broadcasts over heads: identical q/k/v in every head give
@@ -334,8 +379,17 @@ def phase_kernels(ctx):
                            else "operations")
         return tot
 
+    for kern in ("K1", "K2"):
+        tot = summary(rows[kern])
+        exps = sum(exp_ms(BATCH, HEADS, r["L"], r["S"]) * r["per_unet_call"]
+                   for r in rows[kern])
+        log(f"kernels: {kern}, the {PER_UNET} launches of one UNet call: "
+            f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, sdpa "
+            f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms, exps "
+            f"{exps:.4f} ms")
     ctx["kernels"] = {
-        "K1": dict(summary(rows["K1"]), err=errs["K1"], shapes=rows["K1"]),
+        "K1": dict(summary(rows["K1"]), err=errs["K1"],
+                   shapes=rows["K1"] + rows["K1 chunked"]),
         "K2": dict(summary(rows["K2"]), err=errs["K2"],
                    shapes=rows["K2"] + rows["K2 cross"]),
         "K3": k3_checks(dev, g, timer, sdpa),
@@ -346,12 +400,13 @@ def phase_kernels(ctx):
 def k3_checks(dev, g, timer, sdpa):
     """K2 at the shapes where the JAX package leaves its single-pass kernel
     for the streaming K3, against the plain version run on 1024 query rows
-    at a time (the whole fp32 logits would be 17 GB at L = 32640).
-    Tolerances as for K2."""
+    at a time (the whole fp32 logits would be 17 GB at L = 32640), with
+    and without pv_bf16 and exp2. Tolerances as for K2."""
     from diffusionspatialcontrol_tpu_torch.ops.kernels import flash_attention as k2
 
-    def plain(q, k, v):
-        return torch.cat([k2.flash_attention_plain(q[:, i:i + 1024], k, v)
+    def plain(q, k, v, **opts):
+        return torch.cat([k2.flash_attention_plain(q[:, i:i + 1024], k, v,
+                                                   **opts)
                           for i in range(0, q.shape[1], 1024)], dim=1)
 
     rows, errs = [], [0.0, 0.0]
@@ -362,11 +417,14 @@ def k3_checks(dev, g, timer, sdpa):
             f"{tag} fp32", k2.flash_attention_nlhd(q, k, v), plain(q, k, v),
             2e-4, 2e-5))
         qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
-        out = k2.flash_attention_nlhd(qb, kb, vb)
-        want = plain(*(t.float() for t in (qb, kb, vb)))
-        errs[1] = max(errs[1], check_close(f"{tag} bf16", out, want, 1e-2,
-                                           0.05 * rms(want)))
-        del q, k, v, out, want
+        del q, k, v
+        for opts in ({}, {"pv_bf16": True, "use_exp2": True}):
+            out = k2.flash_attention_nlhd(qb, kb, vb, **opts)
+            want = plain(*(t.float() for t in (qb, kb, vb)), **opts)
+            errs[1] = max(errs[1], check_close(
+                f"{tag} bf16" + (" +pvbf16+exp2" if opts else ""), out, want,
+                1e-2, 0.05 * rms(want)))
+            del out, want
         ms = timer(lambda: k2.flash_attention_nlhd(qb, kb, vb), reps=3)
         plain_ms = timer(lambda: plain(qb, kb, vb), reps=1, warmup=1)
         lib_ms = timer(lambda: sdpa(qb, kb, vb), reps=3)
@@ -378,7 +436,9 @@ def k3_checks(dev, g, timer, sdpa):
                      else "operations"})
         log(f"kernels: {tag}: fp32 err {errs[0]:.2e}, bf16 err {errs[1]:.2e}"
             f"; bf16 {ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} "
-            f"ms, bound {b_ms:.4f} ms ({rows[-1]['bound_by']})")
+            f"ms, bound {b_ms:.4f} ms ({rows[-1]['bound_by']}), exps "
+            f"{exp_ms(BATCH, HEADS, l, l):.4f} ms")
+        log_option_times(tag, timer, qb, kb, vb, reps=3)
         del qb, kb, vb
     first = rows[0]  # the hires path's shape: the row's numbers
     return dict(first, err=errs, shapes=rows)
@@ -754,8 +814,9 @@ def phase_main(ctx):
 
 
 KERNEL_GROUPS = (  # (group, test on the lower-cased kernel name)
-    ("K1", lambda n: "attention_kernel" in n and "true>" in n),
-    ("K2", lambda n: "attention_kernel" in n and "false>" in n),
+    # both attention bodies carry HAS_BIAS among their template arguments
+    ("K1", lambda n: "dsc::attention" in n and "true" in n),
+    ("K2", lambda n: "dsc::attention" in n and "false" in n),
     ("K4", lambda n: "conv_direct_kernel" in n),
     ("K5", lambda n: "conv_igemm_kernel" in n),
     ("conv", lambda n: "conv" in n or "fprop" in n or "dgrad" in n),
@@ -840,10 +901,32 @@ def kernels_line(ctx):
     return json.dumps({"kernels": out})
 
 
+def run_tree(tree: str, phases: str) -> int:
+    """``python3 chip_smoke.py --phases ...`` in ``tree``, with this file's
+    ColdTimer in place of that tree's own."""
+    here = os.path.abspath(__file__)
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('_timer', {here!r})\n"
+        "timer = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(timer)\n"
+        "import chip_smoke\n"
+        "chip_smoke.ColdTimer = timer.ColdTimer\n"
+        f"sys.exit(chip_smoke.main(['--phases', {phases!r}]))\n")
+    log(f"chip_smoke: {tree}/chip_smoke.py --phases {phases}, timed with "
+        f"the ColdTimer of {here}")
+    return subprocess.run([sys.executable, "-c", code], cwd=tree).returncode
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)}")
+    ap.add_argument("--tree", metavar="DIR",
+                    help="run the chip_smoke.py of another checkout (for "
+                    "example a parent commit unpacked with git archive) "
+                    "with this file's ColdTimer, so that the kernel times "
+                    "of two trees come from one timer")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -854,6 +937,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script drives the port on "
               "the card and has nothing to run here", file=sys.stderr)
         return 1
+    if args.tree:
+        return run_tree(args.tree, args.phases)
     import diffusionspatialcontrol_tpu_torch  # noqa: F401  (fails outside the repo)
 
     torch.backends.cuda.matmul.allow_tf32 = False

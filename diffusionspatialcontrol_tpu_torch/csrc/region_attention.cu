@@ -6,13 +6,21 @@
 // inside w is a plain reduction computed before the launch
 // (ops/attention.py:logits_std_gram_nlhd), as in the JAX package.
 //
-// Bound on an H100 at 512^2: memory. S is 77 (<= 308), so a launch does
-// ~0.8 GFLOP at level 0 but has to read Q and the fp32 bias and write O,
-// ~13 MB. The bias row of batch b is read once per head; at 512^2 a level's
-// bias (<= 2.5 MB) stays in the 50 MB L2 across the heads. See attention.cuh
-// for the kernel's design.
+// Bound on an H100 at 512^2: bytes and exps. S is 77 (<= 308 with chunked
+// prompts), so a launch at level 0 does ~0.8 GFLOP and 40 M exps
+// (0.010 ms) but has to read Q and the fp32 bias and write O, ~13 MB
+// (0.0039 ms). So the design reads each byte once: for bf16 operands
+// (csrc/attention_mma.cuh) a block takes 32 query rows of one batch and a
+// group of heads (all 8 at level 0: 256 blocks), copies its 32 x S bias
+// rows, one contiguous span of the (B, L, S) tensor, into shared memory
+// once, and reuses them for every head of the group. K and V go through the
+// same cp.async ring and tensor-core products as K2's, in key tiles of 80,
+// so S = 77 is one tile padded to 80 keys. The bias tile bounds S: a block
+// has 227 KB of shared memory, so S <= 808 at D = 160 and more at smaller
+// D (the launch returns an error beyond). fp32 operands take the CUDA-core
+// body of csrc/attention.cuh, which reads the bias through L2 once a head.
 
-#include "attention.cuh"
+#include "attention_mma.cuh"
 
 extern "C" int dsc_region_attention(const void* q, const void* k,
                                     const void* v, const float* bias,

@@ -40,11 +40,15 @@ def check_nlhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
                          f"(supported: {HEAD_DIMS})")
     if l == 0 or k.shape[1] == 0:
         raise ValueError("empty query or key sequence")
+    # Both bodies copy 16 bytes at a time: a unit stride on D, the other
+    # strides whole 16-byte words (4 fp32 or 8 bf16 elements), and a
+    # 16-byte-aligned base.
+    words = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        # 16-byte vector loads: unit stride on D, 4-element aligned rows.
-        if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]):
-            raise ValueError(f"{name} needs a unit stride on D and strides "
-                             f"that are multiples of 4, got {t.stride()}")
+        if t.stride(3) != 1 or any(s % words for s in t.stride()[:3]):
+            raise ValueError(f"{name} ({t.dtype}) needs a unit stride on D "
+                             f"and strides that are multiples of {words}, "
+                             f"got {t.stride()}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
     return _DTYPES[q.dtype]

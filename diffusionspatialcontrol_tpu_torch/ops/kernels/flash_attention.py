@@ -3,10 +3,13 @@ PyTorch version beside it.
 
 Replaces ``diffusionspatialcontrol_tpu/ops/pallas/flash_attention.py:_kernel``
 (the single-pass TPU kernel; its caller there is ``flash_attention_nlhd``).
-The kernel is ``csrc/flash_attention.cu`` (design and bound in
-``csrc/attention.cuh``): on an H100 the 512^2 self-attention is
-compute-bound, and K/V do not fit a block's shared memory, so the kernel
-streams them with an online softmax instead of the TPU's single pass.
+The kernel is ``csrc/flash_attention.cu``: bf16 operands take the
+tensor-core body of ``csrc/attention_mma.cuh`` (``mma.sync`` fed by a
+``cp.async`` ring of K/V tiles, online softmax in registers, P kept in
+registers), fp32 operands the CUDA-core body of ``csrc/attention.cuh``. On
+an H100 the 512^2 self-attention is bound by its exps and MMAs, and K/V do
+not fit a block's shared memory, so the kernel streams them with an online
+softmax instead of the TPU's single pass.
 
 Options: ``pv_bf16`` and ``use_exp2`` as in the Pallas kernel. Its third
 option, ``qk_bf16``, only stops that kernel from casting Q and K to fp32
@@ -17,8 +20,8 @@ nothing (see ``models/unet.py``).
 K2 is also the counterpart of K3, ``flash_attention.py:_stream_kernel``:
 the JAX package leaves its single-pass kernel for that streaming body when
 K/V outgrow VMEM (S > 12160 at D <= 128, e.g. the level-0 self-attention at
-1024^2, L = S = 16384), and ``csrc/attention.cuh`` already streams K/V
-tiles with an online softmax at every S.
+1024^2, L = S = 16384), and the kernel streams K/V tiles with an online
+softmax at every S.
 
 Dispatch: CPU tensors take ``flash_attention_plain``; CUDA tensors launch
 the kernel or raise. ``flash_attention_nlhd.launches`` counts launches and

@@ -3,8 +3,12 @@ plain PyTorch version beside it.
 
 Replaces ``diffusionspatialcontrol_tpu/ops/pallas/region_attention.py:_kernel``
 (its caller there is ``region_attention_nlhd``). The kernel is
-``csrc/region_attention.cu`` (design in ``csrc/attention.cuh``): on an H100
-it is bound by the bytes of Q, O and the fp32 bias, since S <= 308.
+``csrc/region_attention.cu``: on an H100 it is bound by the bytes of Q, O
+and the fp32 bias, since S <= 308. For bf16 operands (the tensor-core body,
+``csrc/attention_mma.cuh``) a block copies its rows of the bias into shared
+memory once and reuses them for a group of heads; that tile bounds S (808
+at D = 160, more at smaller D), and a longer S raises. fp32 operands take
+the CUDA-core body of ``csrc/attention.cuh``, which takes any S.
 
 The global logits std and the bias ``w = region * (weight_scale * sigma *
 std)`` are plain reductions before the launch, as in the JAX package; sigma

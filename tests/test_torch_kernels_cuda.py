@@ -12,6 +12,8 @@ tolerance); bf16 operands against the plain version computed in fp32 on the
 same bf16 values, rtol 1e-2 (the bf16 rounding of the output, at most 2^-8
 relative) and atol 5% of the reference's RMS (outputs near zero); the same
 for K2's pv_bf16/exp2 options against the plain version with those options.
+fp32 operands run the CUDA-core body (csrc/attention.cuh), bf16 operands
+the tensor-core body (csrc/attention_mma.cuh).
 """
 
 import pytest
@@ -19,6 +21,7 @@ import torch
 
 from diffusionspatialcontrol_tpu_torch.ops.kernels import flash_attention as k2
 from diffusionspatialcontrol_tpu_torch.ops.kernels import region_attention as k1
+from diffusionspatialcontrol_tpu_torch.ops.kernels._launch import HEAD_DIMS
 
 
 @pytest.fixture
@@ -79,6 +82,176 @@ def test_bf16_and_options_match_plain(dev):
                        k1.region_softmax_attention_plain(qf, kf, vf, w))
 
 
+K2_OPTIONS = [{}, {"pv_bf16": True}, {"use_exp2": True},
+              {"pv_bf16": True, "use_exp2": True}]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", K2_OPTIONS,
+                         ids=lambda o: "+".join(o) or "default")
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("l,s", [(300, 300), (130, 1), (130, 5), (64, 77),
+                                 (300, 154), (130, 308)])
+def test_k2_bf16_tensor_core_body_matches_plain(dev, opts, d, l, s):
+    """Ragged L and S (one key, a partial 16-key group, partial 64-key
+    tiles, several tiles) at every head dim, with each option."""
+    q, k, v = _qkv(dev, 2, l, s, 3, d, torch.bfloat16, seed=5)
+    _assert_bf16_close(
+        k2.flash_attention_kernel(q, k, v, **opts),
+        k2.flash_attention_plain(q.float(), k.float(), v.float(), **opts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("s", [1, 5, 77, 154, 308])
+@pytest.mark.parametrize("l", [130, 300])
+def test_k1_bf16_tensor_core_body_matches_plain(dev, d, s, l):
+    """S from one key to four prompt chunks (77 * 4 = 308, four 80-key
+    tiles); 8 heads over 2 batches, so the launch groups heads."""
+    q, k, v = _qkv(dev, 2, l, s, 8, d, torch.bfloat16, seed=6)
+    w = torch.randn(2, l, s, device=dev)
+    _assert_bf16_close(
+        k1.region_softmax_attention_kernel(q, k, v, w),
+        k1.region_softmax_attention_plain(q.float(), k.float(), v.float(), w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,s", [(40, 77), (160, 308), (16, 5)])
+def test_k1_bf16_heads_are_bitwise_identical(dev, d, s):
+    """The bias broadcasts over heads: identical q/k/v in every head give
+    bitwise identical outputs, whichever block and head group ran them."""
+    q, k, v = _qkv(dev, 2, 200, s, 1, d, torch.float32, seed=7)
+    q, k, v = (t.expand(-1, -1, 8, -1).contiguous().to(torch.bfloat16)
+               for t in (q, k, v))
+    out = k1.region_softmax_attention_kernel(
+        q, k, v, torch.randn(2, 200, s, device=dev))
+    for h in range(1, 8):
+        assert torch.equal(out[:, :, h], out[:, :, 0]), h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kern", ["K1", "K2"])
+@pytest.mark.parametrize("d", [40, 160])
+def test_bf16_strided_operands(dev, kern, d):
+    """(B, L, H, D) views of one wider projection: rows 3*H*D apart."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    wide = torch.randn(2, 130, 3, 4, d, device=dev, generator=g).to(
+        torch.bfloat16)
+    q, k, v = wide[:, :, 0], wide[:, :77, 1], wide[:, :77, 2]
+    ref = (q.float(), k.float(), v.float())
+    if kern == "K2":
+        got, want = (k2.flash_attention_kernel(q, k, v),
+                     k2.flash_attention_plain(*ref))
+    else:
+        w = torch.randn(2, 130, 77, device=dev, generator=g)
+        got, want = (k1.region_softmax_attention_kernel(q, k, v, w),
+                     k1.region_softmax_attention_plain(*ref, w))
+    _assert_bf16_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kern", ["K1", "K2"])
+@pytest.mark.parametrize("d,s", [(40, 77), (40, 130), (80, 5), (160, 154)])
+def test_bf16_nan_past_the_operands_stays_out(dev, kern, d, s):
+    """Q, K and V as views of buffers that hold NaN just past row L or S and
+    in the 8 columns past D (D = 40 pads QK^T's depth to 48 there): the
+    kernel zero-fills what it copies beyond the operands, so the output is
+    finite and matches the plain version."""
+    b, l, h = 2, 100, 3
+
+    def poisoned(rows, n_valid, seed):
+        buf = torch.full((b, rows + 16, h, d + 8), float("nan"), device=dev,
+                         dtype=torch.bfloat16)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        view = buf[:, :n_valid, :, :d]
+        view.copy_(torch.randn(view.shape, device=dev, generator=g))
+        return view
+
+    q, k, v = poisoned(l, l, 1), poisoned(s, s, 2), poisoned(s, s, 3)
+    ref = (q.float(), k.float(), v.float())
+    if kern == "K2":
+        got, want = (k2.flash_attention_kernel(q, k, v),
+                     k2.flash_attention_plain(*ref))
+    else:
+        w = torch.randn(b, l, s, device=dev)
+        got, want = (k1.region_softmax_attention_kernel(q, k, v, w),
+                     k1.region_softmax_attention_plain(*ref, w))
+    assert torch.isfinite(got).all()
+    _assert_bf16_close(got, want)
+
+
+@pytest.mark.cuda
+def test_k1_bf16_bias_tile_bounds_s(dev):
+    """At D = 160 the bias rows of a block fit shared memory up to S = 808
+    (ten prompt chunks); a longer S is refused, and fp32 takes any S."""
+    q, k, v = _qkv(dev, 1, 40, 809, 2, 160, torch.bfloat16, seed=9)
+    w = torch.randn(1, 40, 809, device=dev)
+    _assert_bf16_close(
+        k1.region_softmax_attention_kernel(q, k[:, :808], v[:, :808],
+                                           w[..., :808]),
+        k1.region_softmax_attention_plain(q.float(), k[:, :808].float(),
+                                          v[:, :808].float(), w[..., :808]))
+    with pytest.raises(RuntimeError):
+        k1.region_softmax_attention_kernel(q, k, v, w)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    torch.testing.assert_close(
+        k1.region_softmax_attention_kernel(qf, kf, vf, w),
+        k1.region_softmax_attention_plain(qf, kf, vf, w), rtol=2e-4,
+        atol=2e-5)
+
+
+def _p_rounding_operands(dev, b, l, s, h, d):
+    """Operands on which rounding P to bf16 moves the output by about a
+    third. Every query is e0; even keys are 0 (logit 0, P = 1 exactly, the
+    max), odd keys -beta e0 (P = x = exp(-scale beta), about 1 - 1.5 * 2^-8,
+    half-way between two bf16 values, so bf16(x) is 2^-9 off); V is +1 on
+    even keys and -1 on odd ones. The output, about (1 - x) / (1 + x) =
+    0.003 in every element, is a difference of sums of P, so P's 2^-9
+    error is a third of it, where hi + lo (2^-17) and the bf16 output
+    (2^-9 relative) stay near 0.2%."""
+    beta = 0.0058766 * d ** 0.5  # scale * beta = -log(1 - 1.5 * 2^-8)
+    q = torch.zeros(b, l, h, d, device=dev)
+    q[..., 0] = 1
+    k = torch.zeros(b, s, h, d, device=dev)
+    k[:, 1::2, :, 0] = -beta
+    v = torch.ones(b, s, h, d, device=dev)
+    v[:, 1::2] = -1
+    return tuple(t.to(torch.bfloat16) for t in (q, k, v))
+
+
+def _rel_err(got, want):
+    return float(((got.float() - want) / want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_bf16_p_is_not_rounded_unless_pv_bf16(dev, d):
+    """The default instances (P as bf16 hi + lo) match the unrounded fp32
+    reference to 1% on operands where a bf16 P is a third off; the pv_bf16
+    instances (hi only) are that far off, and match the plain version that
+    rounds P. K1 takes no options: its result is held to the reference,
+    and P rounded on the host shows that hi alone would miss it."""
+    q, k, v = _p_rounding_operands(dev, 1, 130, 130, 2, d)
+    ref = (q.float(), k.float(), v.float())
+    want = k2.flash_attention_plain(*ref)
+    assert float(want.abs().min()) > 1e-3
+    for opts in K2_OPTIONS:
+        got = k2.flash_attention_kernel(q, k, v, **opts)
+        if opts.get("pv_bf16"):
+            assert _rel_err(got, want) > 0.1, opts
+            _assert_bf16_close(got, k2.flash_attention_plain(*ref, **opts))
+        else:
+            assert _rel_err(got, want) < 0.01, opts
+    w = torch.zeros(1, 130, 130, device=dev)
+    assert _rel_err(k1.region_softmax_attention_kernel(q, k, v, w),
+                    k1.region_softmax_attention_plain(*ref, w)) < 0.01
+    s = torch.einsum("blhd,bshd->bhls", *ref[:2]) * d ** -0.5
+    p = torch.exp(s - s.amax(-1, keepdim=True))  # as the kernel: P / l
+    hi_only = torch.einsum("bhls,bshd->blhd", p.to(torch.bfloat16).float(),
+                           ref[2]) / p.sum(-1).transpose(1, 2)[..., None]
+    assert _rel_err(hi_only, want) > 0.1
+
+
 @pytest.mark.cuda
 def test_k1_head_broadcast_and_strided_operands(dev):
     q, k, v = _qkv(dev, 1, 64, 77, 1, 40, torch.float32, seed=3)
@@ -114,6 +287,10 @@ def test_wrappers_count_and_refuse(dev):
         k2.flash_attention_nlhd(*(t[..., :24] for t in (q, k, v)))
     with pytest.raises(TypeError):
         k2.flash_attention_nlhd(q.half(), k.half(), v.half())
+    # bf16 rows 44 elements apart: not whole 16-byte words
+    wide = torch.zeros(1, 64, 2, 44, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        k2.flash_attention_nlhd(*(wide[..., :40],) * 3)
     assert k2.flash_attention_nlhd.launches == before + 2
 
 
