@@ -13,12 +13,16 @@ result line:
    K2 at the two shapes where the JAX package streams (K3: the level-0
    self-attention at 1024^2, L = 16384, and at 1920x1088, L = 32640); K4
    and K5 (the fused GroupNorm+SiLU+conv3x3) at every resnet-conv shape of
-   the UNet and the VAE decoder at 512^2 and 1024^2. Each with its time
+   the UNet and the VAE decoder at 512^2 and 1024^2, with the RMS-relative
+   error beside the elementwise one and, where the C_in chunks are split
+   over several blocks, two launches held bitwise equal. Each with its time
    beside the plain version's, the least time the card could take (bound;
    the log lines of attention also give the time of its exps alone, and
    K2's self-attentions the times of its three other option instances) and
    one library call as a yardstick (``library_ms``: SDPA for attention,
-   cuDNN's conv for K4/K5; the port never calls them);
+   cuDNN's conv for K4/K5; the port never calls them); the convs also
+   beside the port's own unfused resnet conv (``unfused_ms``: GroupNorm,
+   SiLU, library conv, adds, as ``conv_impl="xla"`` runs them);
 3. tiny: the tiny config's txt2img (fp32, 64x64, 4 steps, with and without a
    two-phrase region map, the same weights and latents) on the card against
    the port on the CPU, where the kernels' plain versions run; the same
@@ -464,13 +468,22 @@ def conv_checks(dev, g, timer):
 
     Tolerances: fp32 5e-5 absolute (tests/test_conv_fused.py; sums of up to
     9 * 2560 terms in another order). bf16: rtol 1e-2 and atol 5% of the
-    reference's RMS, as for K1/K2: both sides round the same activations to
-    bf16 and sum exact products in fp32, so they differ by the order of the
-    sum and the final rounding (at most 2^-8 relative). The yardstick
-    (``library_ms``) is cuDNN's bf16 conv with bias on the pre-activated
-    input, without the GroupNorm, SiLU, channel bias and skip."""
+    reference's RMS, as for K1/K2, and ||out - plain|| / ||plain|| <= 4e-3:
+    both sides round the same activations to bf16 (the bf16 bodies' fast
+    SiLU can move one by a bf16 step near a rounding boundary) and sum exact
+    products in fp32, so they differ by the order of the sum and the final
+    rounding (at most 2^-8 relative, about 1e-3 RMS); a dropped chunk or tap
+    gives tens of percent. Where the plan splits the C_in chunks, a second
+    launch must be bitwise equal to the first (the partials are summed in
+    split order). The yardstick (``library_ms``) is cuDNN's bf16 conv with
+    bias on the pre-activated input, without the GroupNorm, SiLU, channel
+    bias and skip; ``unfused_ms`` is the port's ``"xla"`` resnet conv
+    (models/layers.py: fp32 GroupNorm, SiLU, cuDNN conv, the channel bias
+    and the skip added in bf16), which computes the same conv with other
+    roundings."""
     import torch.nn.functional as F
 
+    from diffusionspatialcontrol_tpu_torch.models import layers
     from diffusionspatialcontrol_tpu_torch.ops.kernels import conv_fused as kc
 
     from diffusionspatialcontrol_tpu_torch import sd15_config
@@ -487,6 +500,7 @@ def conv_checks(dev, g, timer):
     kernels = {"K4": kc.gn_silu_conv3x3, "K5": kc.gn_silu_conv3x3_v2}
     rows = {name: [] for name in kernels}
     errs = {name: [0.0, 0.0] for name in kernels}
+    repeats = 0
     for sh in shapes:
         where, b, h, w, c_in, c_out, temb, skip = sh
         tag = f"{where} {b}x{h}x{w} {c_in}->{c_out}" + (
@@ -515,6 +529,17 @@ def conv_checks(dev, g, timer):
         lib_ms = timer(lambda: F.conv2d(act16, kb16, cb16, padding=1))
         plain_ms = timer(lambda: kc.gn_silu_conv3x3_plain(
             xb16, scale, bias, kb16, cb, xb, sk16), reps=3)
+        conv_p = {"kernel": kb16, "bias": cb16}
+        xb_16 = None if xb is None else xb.to(torch.bfloat16)
+
+        def unfused():
+            h = layers.conv2d(conv_p, layers.silu(layers.group_norm(
+                gn, xb16, 32)))
+            if xb_16 is not None:
+                h = h + xb_16[:, None, None, :]
+            return h if sk16 is None else sk16 + h
+
+        unfused_ms = timer(unfused)
         b_ms, bytes_ms, ops_ms = conv_bound(b, h, w, c_in, c_out, temb, skip)
         line = []
         for name, fn in kernels.items():
@@ -526,6 +551,18 @@ def conv_checks(dev, g, timer):
                 raise AssertionError(f"{name} {tag}: bf16 gave {out.dtype}")
             e16 = check_close(f"{name} {tag} bf16", out, want16, 1e-2,
                               0.05 * rms(want16))
+            rel = float((out.float() - want16.float()).norm()
+                        / want16.float().norm())
+            if not rel <= 4e-3:
+                raise AssertionError(f"{name} {tag} bf16: RMS-relative error "
+                                     f"{rel:.3e} exceeds 4e-3")
+            plan = kc.conv_plan(name, b, h, w, c_in, c_out)
+            if plan.splits > 1:
+                if not torch.equal(out, fn(xb16, scale, bias, kb16, cb, xb,
+                                           sk16)):
+                    raise AssertionError(f"{name} {tag} bf16: two launches "
+                                         f"with {plan.splits} splits differ")
+                repeats += 1
             ms = timer(lambda: fn(xb16, scale, bias, kb16, cb, xb, sk16))
             errs[name] = [max(errs[name][0], e32), max(errs[name][1], e16)]
             rows[name].append({
@@ -534,15 +571,19 @@ def conv_checks(dev, g, timer):
                 "per_call_512": per_call.get(sh, 0),
                 "jax_body": "K4b" if jax_sends_to_k4b(h, w) else "K4a",
                 "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                "bound_ms": b_ms, "bytes_ms": bytes_ms,
+                "unfused_ms": unfused_ms, "bound_ms": b_ms,
+                "bytes_ms": bytes_ms,
                 "operations_ms": ops_ms,
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "max_abs_err_fp32": e32, "max_abs_err_bf16": e16})
-            line.append(f"{name} {ms:.4f} ms (errs {e32:.1e}, {e16:.1e})")
+            line.append(f"{name} {ms:.4f} ms (errs {e32:.1e}, {e16:.1e}, "
+                        f"rms-rel {rel:.1e}, {plan.splits} splits)")
         torch.cuda.synchronize()
         log(f"kernels: conv {tag}: " + ", ".join(line) + f"; plain "
-            f"{plain_ms:.4f} ms, cudnn {lib_ms:.4f} ms, bound {b_ms:.4f} ms")
-        del x, kern, xb, sk, want32, want16, xb16, kb16, sk16, act16
+            f"{plain_ms:.4f} ms, cudnn {lib_ms:.4f} ms, unfused "
+            f"{unfused_ms:.4f} ms, bound {b_ms:.4f} ms")
+        del x, kern, xb, sk, want32, want16, xb16, kb16, sk16, act16, xb_16
+    log(f"kernels: conv: {repeats} split-K launches repeated bitwise")
 
     # Sums over the launches of one UNet call and one decode at each size,
     # split by the Pallas body the JAX package would run there (K4a/K4b).
@@ -553,21 +594,41 @@ def conv_checks(dev, g, timer):
             groups.setdefault(key, []).append(shapes.index(sh))
         for (where, body), idx in groups.items():
             tot = {f: [sum(rows[n][i][f] for i in idx) for n in kernels]
-                   for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                   for f in ("ms", "plain_ms", "library_ms", "unfused_ms",
+                             "bound_ms")}
             log(f"kernels: conv sums, {where} at {size}^2, {len(idx)} "
                 f"launches at {body} shapes: K4 {tot['ms'][0]:.4f} ms, K5 "
                 f"{tot['ms'][1]:.4f} ms, plain {tot['plain_ms'][0]:.4f} ms, "
-                f"cudnn {tot['library_ms'][0]:.4f} ms, bound "
+                f"cudnn {tot['library_ms'][0]:.4f} ms, unfused "
+                f"{tot['unfused_ms'][0]:.4f} ms, bound "
                 f"{tot['bound_ms'][0]:.4f} ms")
+
+    # Sums by map size over the launches of one 512^2 UNet call and one
+    # 512^2 decode (PERF.md's per-map table).
+    by_map = {}
+    for sh in resnet_conv_shapes(cfg, 512, 512):
+        by_map.setdefault((sh[0], sh[2], sh[3]), []).append(shapes.index(sh))
+    for (where, h, w), idx in by_map.items():
+        tot = {f: [sum(rows[n][i][f] for i in idx) for n in kernels]
+               for f in ("ms", "library_ms", "unfused_ms", "bound_ms")}
+        log(f"kernels: conv sums, {where} {h}x{w} at 512^2, {len(idx)} "
+            f"launches: K4 {tot['ms'][0]:.4f} ms, K5 {tot['ms'][1]:.4f} ms, "
+            f"cudnn {tot['library_ms'][0]:.4f} ms, unfused "
+            f"{tot['unfused_ms'][0]:.4f} ms, bound "
+            f"{tot['bound_ms'][0]:.4f} ms")
 
     def summary(name):
         """Sums over the 44 launches of one 512^2 UNet call."""
         tot = {key: sum(r[key] * r["per_call_512"] for r in rows[name]
                         if r["where"] == "unet")
-               for key in ("ms", "plain_ms", "library_ms", "bound_ms",
-                           "bytes_ms", "operations_ms")}
+               for key in ("ms", "plain_ms", "library_ms", "unfused_ms",
+                           "bound_ms", "bytes_ms", "operations_ms")}
         tot["bound_by"] = ("bytes" if tot["bytes_ms"] >= tot["operations_ms"]
                            else "operations")
+        log(f"kernels: {name}, the 44 launches of one 512^2 UNet call: "
+            f"{tot['ms']:.4f} ms = {tot['ms'] / tot['library_ms']:.2f}x "
+            f"cudnn ({tot['library_ms']:.4f} ms), unfused "
+            f"{tot['unfused_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
         return dict(tot, err=errs[name], shapes=rows[name])
 
     return {name: summary(name) for name in kernels}
@@ -817,8 +878,8 @@ KERNEL_GROUPS = (  # (group, test on the lower-cased kernel name)
     # both attention bodies carry HAS_BIAS among their template arguments
     ("K1", lambda n: "dsc::attention" in n and "true" in n),
     ("K2", lambda n: "dsc::attention" in n and "false" in n),
-    ("K4", lambda n: "conv_direct_kernel" in n),
-    ("K5", lambda n: "conv_igemm_kernel" in n),
+    ("K4", lambda n: "conv_mma_kernel" in n or "conv_direct_kernel" in n),
+    ("K5", lambda n: "conv_wgmma_kernel" in n or "conv_igemm_kernel" in n),
     ("conv", lambda n: "conv" in n or "fprop" in n or "dgrad" in n),
     ("gemm", lambda n: "gemm" in n or "nvjet" in n or "cutlass" in n),
     ("norm", lambda n: "norm" in n),

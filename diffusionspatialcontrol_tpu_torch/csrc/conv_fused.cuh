@@ -1,6 +1,7 @@
 // GroupNorm-affine + SiLU + 3x3 convolution for Hopper (sm_90a): the
 // operands, prologue and epilogue shared by K4 (direct convolution,
-// csrc/conv_fused.cu) and K5 (implicit GEMM, csrc/conv_fused_v2.cu).
+// csrc/conv_fused.cu) and K5 (implicit GEMM, csrc/conv_fused_v2.cu); what
+// their bf16 tensor-core bodies share beyond this is in conv_tc.cuh.
 //
 //   out[b, y, x, o] = sum_{ky, kx, c} act[b, y+ky-1, x+kx-1, c]
 //                                     * w[o, ky, kx, c]

@@ -5,12 +5,14 @@ hand-written CUDA kernels with one plain PyTorch version beside them.
 
 Replaces ``diffusionspatialcontrol_tpu/ops/pallas/conv_fused.py``:
 
-* K4, ``gn_silu_conv3x3`` -> ``csrc/conv_fused.cu`` (direct convolution),
-  the counterpart of both ``_kernel`` (K4a, the whole map per program) and
-  ``_kernel_rows`` (K4b, row blocks with a halo). The TPU picks one of them
-  by whether the map fits VMEM; the CUDA grid tiles rows at every size.
-* K5, ``gn_silu_conv3x3_v2`` -> ``csrc/conv_fused_v2.cu`` (implicit GEMM,
-  bf16 on the tensor cores), the counterpart of ``_kernel_v2``.
+* K4, ``gn_silu_conv3x3`` -> ``csrc/conv_fused.cu`` (direct convolution;
+  bf16 on ``mma.sync``), the counterpart of both ``_kernel`` (K4a, the
+  whole map per program) and ``_kernel_rows`` (K4b, row blocks with a
+  halo). The TPU picks one of them by whether the map fits VMEM; the CUDA
+  grid tiles every map.
+* K5, ``gn_silu_conv3x3_v2`` -> ``csrc/conv_fused_v2.cu`` (implicit GEMM;
+  bf16 on ``wgmma`` with the weights by TMA), the counterpart of
+  ``_kernel_v2``.
 
 Both compute one function, ``gn_silu_conv3x3_plain``: the activation is
 rounded to ``x.dtype`` before the conv, the zero padding stays zero after
@@ -28,12 +30,22 @@ raises, and there is no fallback to another conv path.
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
 kernel or raise. Each launcher adds to its wrapper's ``launches`` and to
 its ``shapes`` tally, keyed by (B, H, W, C_in, C_out).
+
+bf16 operands run the tensor-core bodies (K4 on ``mma.sync``, K5 on
+``wgmma``; ``csrc/conv_tc.cuh``), launched by :func:`conv_plan`'s plan:
+where the output tiles alone would leave SMs idle, the C_in chunks are
+split over several blocks of a tile, whose fp32 partials go to a
+workspace this module allocates per launch (``torch.empty``) and are
+summed in split order by the tile's last block, found by a ticket counter
+per tile that is zeroed once per device here and reset by the kernels.
+fp32 operands keep the CUDA-core bodies and take no plan.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -117,12 +129,98 @@ def _check(x, scale, bias, kernel, conv_bias, channel_bias, skip):
     return vectors
 
 
+SMS = 132           # streaming multiprocessors of an H100 SXM
+TILE_N = 128        # output channels of a tile (both bf16 bodies)
+K5_STRIP_MAX_W = 8  # K5 tiles padded strips up to this width, boxes beyond
+
+
+class ConvPlan(NamedTuple):
+    """How one bf16 launch is cut: ``tile`` is K4's tile width (16, or 8
+    where W <= 8; tiles are 8 rows high) or K5's form (1: strips of 128
+    positions of the images laid out with padded rows of W + 2; 0: boxes
+    of 8 x 16 pixels of one image); ``splits`` blocks share each of the
+    ``tiles_m`` x ``tiles_n`` output tiles, split ``s`` taking C_in chunks
+    [s * chunks // splits, (s + 1) * chunks // splits)."""
+    tile: int
+    tile_pixels: int
+    tiles_m: int
+    tiles_n: int
+    chunk: int
+    chunks: int
+    splits: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles_m * self.tiles_n * self.splits
+
+    @property
+    def ws_bytes(self) -> int:
+        """fp32 partials of every block, when the chunks are split."""
+        if self.splits == 1:
+            return 0
+        return 4 * self.blocks * self.tile_pixels * TILE_N
+
+    def chunk_ranges(self):
+        """The C_in chunks [c0, c1) of each split, in split order."""
+        n, s = self.chunks, self.splits
+        return [(i * n // s, (i + 1) * n // s) for i in range(s)]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def conv_plan(version: str, b: int, h: int, w: int, c_in: int,
+              c_out: int) -> ConvPlan:
+    """The tiles and the split of a bf16 launch of K4 (``version="K4"``) or
+    K5 (``"K5"``): the C_in chunks (16 channels for K4, 64 for K5) are
+    split over as many blocks as bring the grid to the card's 132 SMs,
+    and not split where the output tiles alone fill them."""
+    if version == "K4":
+        tile = 16 if w > 8 else 8
+        tile_pixels = 8 * tile
+        tiles_m = b * _cdiv(h, 8) * _cdiv(w, tile)
+        chunk = 16
+    elif version == "K5":
+        tile = 1 if w <= K5_STRIP_MAX_W else 0
+        tile_pixels = 128
+        if tile:
+            pw = w + 2
+            tiles_m = _cdiv(b * (h + 2) * pw - 2 * pw, 128)
+        else:
+            tiles_m = b * _cdiv(h, 8) * _cdiv(w, 16)
+        chunk = 64
+    else:
+        raise ValueError(f"version must be K4 or K5, got {version!r}")
+    tiles_n = _cdiv(c_out, TILE_N)
+    chunks = _cdiv(c_in, chunk)
+    base = tiles_m * tiles_n
+    splits = 1 if base >= SMS else min(chunks, _cdiv(SMS, base))
+    return ConvPlan(tile, tile_pixels, tiles_m, tiles_n, chunk, chunks,
+                    splits)
+
+
+_tickets = {}  # device -> int32 counters, one per tile of a split launch
+
+
+def _ticket_array(device) -> torch.Tensor:
+    """Zeroed once per device; every split launch leaves it zeroed. A split
+    launch has fewer than SMS tiles. One array serves every launch on the
+    device, so split launches must not run concurrently on two streams (the
+    port launches on the current stream only)."""
+    t = _tickets.get(device)
+    if t is None:
+        t = _tickets[device] = torch.zeros(SMS, dtype=torch.int32,
+                                           device=device)
+    return t
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(source: str, wrapper, x, scale, bias, kernel, conv_bias,
-            channel_bias, skip):
+def _launch(source: str, version: str, wrapper, x, scale, bias, kernel,
+            conv_bias, channel_bias, skip):
     """Launch ``dsc_<source>`` of ``csrc/<source>.cu``; counts the launch
     on ``wrapper``."""
     scale, bias, conv_bias, channel_bias = _check(
@@ -130,14 +228,24 @@ def _launch(source: str, wrapper, x, scale, bias, kernel, conv_bias,
     b, h, w, c_in = x.shape
     c_out = kernel.shape[0]
     out = torch.empty((b, h, w, c_out), dtype=x.dtype, device=x.device)
+    ws = tickets = None
+    tile, tiles_m, splits = 0, 0, 1  # the fp32 bodies take no plan
+    if x.dtype == torch.bfloat16:
+        plan = conv_plan(version, b, h, w, c_in, c_out)
+        tile, tiles_m, splits = plan.tile, plan.tiles_m, plan.splits
+        if splits > 1:
+            ws = torch.empty(plan.ws_bytes // 4, dtype=torch.float32,
+                             device=x.device)
+            tickets = _ticket_array(x.device)
     fn = getattr(_build.load(source), f"dsc_{source}")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p]
     err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
              kernel.data_ptr(), conv_bias.data_ptr(), _ptr(channel_bias),
-             _ptr(skip), out.data_ptr(), _DTYPES[x.dtype], b, h, w, c_in,
-             c_out, stream_arg(x))
+             _ptr(skip), out.data_ptr(), _ptr(ws), _ptr(tickets),
+             _DTYPES[x.dtype], b, h, w, c_in, c_out, tile, tiles_m, splits,
+             stream_arg(x))
     raise_on_error(err, source)
     wrapper.launches += 1
     wrapper.shapes[(b, h, w, c_in, c_out)] += 1
@@ -158,8 +266,8 @@ def _dispatch(launcher, x, scale, bias, kernel, conv_bias, channel_bias,
 def gn_silu_conv3x3_kernel(x, scale, bias, kernel, conv_bias,
                            channel_bias=None, skip=None):
     """Launch K4 on CUDA operands (no dispatch); counts the launch."""
-    return _launch("conv_fused", gn_silu_conv3x3, x, scale, bias, kernel,
-                   conv_bias, channel_bias, skip)
+    return _launch("conv_fused", "K4", gn_silu_conv3x3, x, scale, bias,
+                   kernel, conv_bias, channel_bias, skip)
 
 
 def gn_silu_conv3x3(x, scale, bias, kernel, conv_bias, channel_bias=None,
@@ -173,8 +281,8 @@ def gn_silu_conv3x3(x, scale, bias, kernel, conv_bias, channel_bias=None,
 def gn_silu_conv3x3_v2_kernel(x, scale, bias, kernel, conv_bias,
                               channel_bias=None, skip=None):
     """Launch K5 on CUDA operands (no dispatch); counts the launch."""
-    return _launch("conv_fused_v2", gn_silu_conv3x3_v2, x, scale, bias,
-                   kernel, conv_bias, channel_bias, skip)
+    return _launch("conv_fused_v2", "K5", gn_silu_conv3x3_v2, x, scale,
+                   bias, kernel, conv_bias, channel_bias, skip)
 
 
 def gn_silu_conv3x3_v2(x, scale, bias, kernel, conv_bias, channel_bias=None,

@@ -1,4 +1,4 @@
-"""K1 and K2 on the card against their plain PyTorch versions.
+"""K1, K2, K4 and K5 on the card against their plain PyTorch versions.
 
 Marked ``cuda``: they need a CUDA device and nvcc, and skip without them.
 This file imports only torch and the port (no JAX), so it runs on a machine
@@ -320,7 +320,28 @@ CONV_SHAPES = [(2, 12, 10, 32, 48, True, True), (1, 7, 13, 24, 40, True, True),
                (1, 10, 6, 640, 32, True, False), (1, 33, 17, 16, 136, False,
                                                   True),
                (2, 64, 64, 320, 320, True, False), (1, 3, 130, 64, 8, False,
-                                                    False)]
+                                                    False),
+               (2, 8, 8, 2560, 1280, False, True),
+               (2, 16, 16, 1280, 1280, True, False)]
+# Where the bf16 bodies split the C_in chunks over several blocks a tile.
+SPLIT_SHAPES = CONV_SHAPES[-2:]
+
+
+def _conv_launcher(version):
+    from diffusionspatialcontrol_tpu_torch.ops.kernels import conv_fused as kc
+
+    return {"K4": kc.gn_silu_conv3x3_kernel,
+            "K5": kc.gn_silu_conv3x3_v2_kernel}[version]
+
+
+def _assert_conv_bf16_close(got, want):
+    """Elementwise as _assert_bf16_close, and ||got - want|| / ||want|| <=
+    4e-3: both sides round the same activations to bf16 and sum exact
+    products in fp32, so they differ by the order of the sum and the final
+    rounding (about 1e-3 RMS); a dropped chunk or tap is tens of percent."""
+    _assert_bf16_close(got, want)
+    rel = float((got.float() - want).norm() / want.norm())
+    assert rel <= 4e-3, rel
 
 
 @pytest.mark.cuda
@@ -330,15 +351,93 @@ CONV_SHAPES = [(2, 12, 10, 32, 48, True, True), (1, 7, 13, 24, 40, True, True),
 def test_conv_kernels_match_plain(dev, version, shape):
     from diffusionspatialcontrol_tpu_torch.ops.kernels import conv_fused as kc
 
-    launch = {"K4": kc.gn_silu_conv3x3_kernel,
-              "K5": kc.gn_silu_conv3x3_v2_kernel}[version]
+    launch = _conv_launcher(version)
     b, h, w, c_in, c_out, temb, skip = shape
     ops = _conv_operands(dev, b, h, w, c_in, c_out, torch.float32, temb, skip)
     torch.testing.assert_close(launch(*ops), kc.gn_silu_conv3x3_plain(*ops),
                                rtol=0, atol=5e-5)
     ops = _conv_operands(dev, b, h, w, c_in, c_out, torch.bfloat16, temb,
                          skip, seed=1)
-    _assert_bf16_close(launch(*ops), kc.gn_silu_conv3x3_plain(*ops).float())
+    _assert_conv_bf16_close(launch(*ops),
+                            kc.gn_silu_conv3x3_plain(*ops).float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", ["K4", "K5"])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES,
+                         ids=lambda s: "x".join(map(str, s[:5])))
+def test_conv_split_k_is_bitwise_repeatable(dev, version, shape):
+    """The split partials are summed in split order by the tile's last
+    block: two launches give the same bits, and the tickets are back at 0."""
+    from diffusionspatialcontrol_tpu_torch.ops.kernels import conv_fused as kc
+
+    b, h, w, c_in, c_out, temb, skip = shape
+    assert kc.conv_plan(version, b, h, w, c_in, c_out).splits > 1
+    ops = _conv_operands(dev, b, h, w, c_in, c_out, torch.bfloat16, temb,
+                         skip, seed=2)
+    launch = _conv_launcher(version)
+    first = launch(*ops)
+    for _ in range(2):
+        assert torch.equal(launch(*ops), first)
+    assert int(kc._ticket_array(first.device).abs().sum()) == 0
+    _assert_conv_bf16_close(first, kc.gn_silu_conv3x3_plain(*ops).float())
+
+
+def _poisoned(shape, values, pad=4096):
+    """A contiguous view of the first elements of a wider buffer that holds
+    NaN past them."""
+    buf = torch.full((values.numel() + pad,), float("nan"),
+                     dtype=values.dtype, device=values.device)
+    view = buf[:values.numel()].view(shape)
+    view.copy_(values.reshape(shape))
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", ["K4", "K5"])
+@pytest.mark.parametrize("shape", [(1, 7, 13, 24, 40, True, True),
+                                   (1, 33, 17, 16, 136, False, True),
+                                   (2, 8, 8, 2560, 1280, False, True)],
+                         ids=lambda s: "x".join(map(str, s[:5])))
+def test_conv_bf16_nan_past_the_operands_stays_out(dev, version, shape):
+    """x, the weights and the skip as views of buffers that hold NaN just
+    past their last element: ragged C_in and C_out (24, 40, 136 against
+    chunks of 16 or 64 and tiles of 128 channels) and the halo past the
+    last pixel must be zero-filled, never read."""
+    from diffusionspatialcontrol_tpu_torch.ops.kernels import conv_fused as kc
+
+    b, h, w, c_in, c_out, temb, skip = shape
+    x, scale, bias, kern, cb, xb, sk = _conv_operands(
+        dev, b, h, w, c_in, c_out, torch.bfloat16, temb, skip, seed=3)
+    x = _poisoned(x.shape, x)
+    kern = _poisoned((c_out, 3, 3, c_in),
+                     kern.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+    sk = _poisoned(sk.shape, sk)
+    got = _conv_launcher(version)(x, scale, bias, kern, cb, xb, sk)
+    assert torch.isfinite(got).all()
+    _assert_conv_bf16_close(got, kc.gn_silu_conv3x3_plain(
+        x, scale, bias, kern, cb, xb, sk).float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", ["K4", "K5"])
+def test_conv_fp32_keeps_the_cuda_core_bodies(dev, version):
+    """fp32 operands launch the CUDA-core bodies of PR 2, bf16 operands the
+    tensor-core ones, by the kernel names the profiler records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {"K4": ("conv_direct_kernel", "conv_mma_kernel"),
+             "K5": ("conv_igemm_kernel", "conv_wgmma_kernel")}[version]
+    for dtype, want, other in ((torch.float32, *names),
+                               (torch.bfloat16, *names[::-1])):
+        ops = _conv_operands(dev, 2, 12, 10, 32, 48, dtype, True, True)
+        _conv_launcher(version)(*ops)  # built and loaded before the trace
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _conv_launcher(version)(*ops)
+            torch.cuda.synchronize()
+        launched = " ".join(e.key for e in prof.key_averages())
+        assert want in launched and other not in launched, (dtype, launched)
 
 
 @pytest.mark.cuda
