@@ -9,7 +9,10 @@ result line:
    source, all started together) and print the card's name and power limit;
 2. kernels: K1 (region attention) and K2 (attention) against their plain
    PyTorch versions at every shape the SD1.5 512^2 main path gives them,
-   and K1 at the S of chunked prompts (154, 231, 308) at every level;
+   and both at the S of longer prompts at every level: the context lengths
+   of two to four prompt chunks (K1 at 154, 231 and 308, K2 at 154 and
+   231) and the id counts of long-mode prompts of two and three chunks
+   (152, 227);
    K2 at the two shapes where the JAX package streams (K3: the level-0
    self-attention at 1024^2, L = 16384, and at 1920x1088, L = 32640); K4
    and K5 (the fused GroupNorm+SiLU+conv3x3) at every resnet-conv shape of
@@ -27,16 +30,26 @@ result line:
    two-phrase region map, the same weights and latents) on the card against
    the port on the CPU, where the kernels' plain versions run; the same
    with the fused resnet convs (``conv_impl="pallas"`` and ``"pallas2"``),
-   and a hires request (64^2 -> 128^2, 4 + 2 steps);
+   a hires request (64^2 -> 128^2, 4 + 2 steps) and one with another
+   sampler for the hires pass; every solver of the app's sampler table
+   (the non-Karras schedules among them); prompts of two chunks in the
+   "a1111" mode (with a map) and the "long" mode; and a chunked run paused
+   and resumed, bitwise equal on the card to the plain run. Launches are
+   exact: 16 of K1 and K2 per UNet call, the calls counted at the
+   denoiser;
 4. main: SD1.5 at full width (random bf16 weights from a seed), the request
    ``bench.py`` times: 512^2, 25 DPM++ 2M steps on Karras sigmas, CFG 7.5,
    a two-phrase region map, VAE decode to uint8. It serves spatial requests
    at batch 1, vanilla requests at batch 1 and spatial requests at batch 2,
-   spatial requests with the fused resnet convs (K4, then K5), and hires
+   spatial requests with the fused resnet convs (K4, then K5), hires
    requests 512^2 -> 1024^2 (strength 0.6, the map re-encoded at 1024^2;
-   plain convs, then K4); it checks every image and the kernels' exact
-   launch counts, prints the p50 seconds per image of each request type
-   after one warm-up, and profiles one request of some types.
+   plain convs, then K4), and two requests of the app's own modes: an
+   "a1111" prompt of two chunks with the map and "DPM++ 2M SDE Karras"
+   (K1 at S = 154), and the same prompt in "long" mode without a map on
+   "Heun" (K2's cross-attention at S = 154, two UNet calls a step); it
+   checks every image, the UNet calls and the kernels' exact launch
+   counts, prints the p50 seconds per image of each request type after one
+   warm-up, and profiles one request of some types.
 
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.
@@ -82,7 +95,21 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # D = 40 takes longer in exps than in MMAs; the log lines give this time
 # beside the bytes-or-operations bound of the result line.
 PEAK_EXPS = 3.9e12
-CHUNKED_TEXT = (154, 231, 308)  # S of 2, 3 and 4 prompt chunks
+CHUNKED_TEXT = (154, 231, 308)  # context S of 2, 3 and 4 prompt chunks
+LONG_IDS = (152, 227)  # ids of 2 and 3 long-mode chunks: 75 n + 2
+CHUNKED = 154  # the context S of the two-chunk prompt below, either mode
+
+# About 100 tokens with emphasis, a de-emphasis and one BREAK: two chunks in
+# the "a1111" mode and in the "long" mode; the map's phrases are in it.
+LONG_PROMPT = (
+    "a (red cat:1.3) sitting on a [wooden] bench in a quiet sunlit garden, "
+    "soft orange fur, green eyes, long white whiskers, a calm summer "
+    "afternoon, warm golden light, red and yellow flowers in full bloom, "
+    "tall green grass, an old stone wall covered in ivy, BREAK a blue bird "
+    "flying high above the garden, wide open wings, bright blue feathers, "
+    "a clear sky with small white clouds, distant green hills, "
+    "(highly detailed:1.2), sharp focus, vivid colors, soft shadows, "
+    "gentle breeze, peaceful mood, fine art photograph")
 
 # Where the JAX package streams K/V (K3): the level-0 self-attention at
 # 1024^2 (the hires pass) and at 1920x1088 (kernel check only); B, H, D as
@@ -295,7 +322,8 @@ def phase_kernels(ctx):
     dev = ctx["device"]
     g = torch.Generator(device=dev).manual_seed(0)
     timer = ColdTimer(dev)
-    rows = {"K1": [], "K1 chunked": [], "K2": [], "K2 cross": []}
+    rows = {"K1": [], "K1 chunked": [], "K2": [], "K2 cross": [],
+            "K2 chunked": []}
     errs = {"K1": [0.0, 0.0], "K2": [0.0, 0.0]}  # [fp32, bf16]
 
     def sdpa(q, k, v, mask=None):
@@ -309,7 +337,10 @@ def phase_kernels(ctx):
         cases.append(("K2 cross", l, TEXT, d, n))  # cross-attention, vanilla
         cases.append(("K1", l, TEXT, d, n))       # cross-attention, spatial
     for l, d, _ in LEVELS:  # longer prompts: 0 launches a 77-token request
-        cases += [("K1 chunked", l, s, d, 0) for s in CHUNKED_TEXT]
+        cases += [("K1 chunked", l, s, d, 0)
+                  for s in sorted(CHUNKED_TEXT + LONG_IDS)]
+        cases += [("K2 chunked", l, s, d, 0)
+                  for s in sorted(CHUNKED_TEXT[:2] + LONG_IDS)]
     for name, l, s, d, n in cases:
         kern = name[:2]
         tag = f"{name} L={l} S={s} D={d}"
@@ -391,11 +422,21 @@ def phase_kernels(ctx):
             f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, sdpa "
             f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms, exps "
             f"{exps:.4f} ms")
+    # The same sums at the S of longer prompts, K2 on the cross-attention
+    per_call = {l: n for l, _, n in LEVELS}
+    for name in ("K1 chunked", "K2 cross", "K2 chunked"):
+        for s_len in sorted({r["S"] for r in rows[name]}):
+            tot = summary([dict(r, per_unet_call=per_call[r["L"]])
+                           for r in rows[name] if r["S"] == s_len])
+            log(f"kernels: {name[:2]} at S={s_len}, the {PER_UNET} "
+                f"cross-attentions of one UNet call: {tot['ms']:.4f} ms, "
+                f"plain {tot['plain_ms']:.4f} ms, sdpa "
+                f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
     ctx["kernels"] = {
         "K1": dict(summary(rows["K1"]), err=errs["K1"],
                    shapes=rows["K1"] + rows["K1 chunked"]),
         "K2": dict(summary(rows["K2"]), err=errs["K2"],
-                   shapes=rows["K2"] + rows["K2 cross"]),
+                   shapes=rows["K2"] + rows["K2 cross"] + rows["K2 chunked"]),
         "K3": k3_checks(dev, g, timer, sdpa),
     }
     ctx["kernels"].update(conv_checks(dev, g, timer))
@@ -642,6 +683,44 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
+def _with_text_bias(params, seed: int):
+    """The random init with a random final LayerNorm bias in CLIP. The
+    init's zero bias leaves every text embedding row with a mean of 0 up to
+    rounding, and the "a1111" and "long" modes divide by such means (their
+    weighting restores the embedding's mean); trained weights have a
+    nonzero bias."""
+    norm = params["clip"]["final_layer_norm"]
+    g = torch.Generator().manual_seed(seed)
+    bias = 0.5 * torch.randn(norm["bias"].shape, generator=g)
+    norm["bias"] = bias.to(norm["bias"].dtype).to(norm["bias"].device)
+    return params
+
+
+class UNetCalls:
+    """Counts the denoiser's calls (one UNet call each, on the CFG pair)
+    while it is entered, by wrapping the pipeline's ``make_denoise_fn``."""
+
+    def __enter__(self):
+        from diffusionspatialcontrol_tpu_torch.pipeline import pipeline
+
+        self.n, self._mod = 0, pipeline
+        self._orig = make = pipeline.make_denoise_fn
+
+        def counted_make(*args, **kwargs):
+            denoise = make(*args, **kwargs)
+
+            def counted(x, sigma):
+                self.n += 1
+                return denoise(x, sigma)
+            return counted
+
+        pipeline.make_denoise_fn = counted_make
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.make_denoise_fn = self._orig
+
+
 def _masks(h, w):
     m1 = np.zeros((h, w), np.float32)
     m1[:, : w // 2] = 1.0
@@ -663,40 +742,48 @@ def _wrappers():
 def _counts():
     """Launches so far of K1, K2, K4 and K5; "K3": K2's launches at the
     shape where the JAX package streams (L = S = 16384, D = 40); "K4b": K4's
-    launches at the shapes the JAX package sends to its row-tiled body."""
+    launches at the shapes the JAX package sends to its row-tiled body;
+    "K1 S=154" and "K2 S=154": launches on a context of two prompt chunks."""
     w = _wrappers()
     c = {name: fn.launches for name, fn in w.items()}
     c["K3"] = w["K2"].shapes[(K3_SHAPES[0][0], K3_SHAPES[0][0],
                               K3_SHAPES[0][1])]
     c["K4b"] = sum(n for (_, h, ww, _, _), n in w["K4"].shapes.items()
                    if jax_sends_to_k4b(h, ww))
+    for name in ("K1", "K2"):
+        c[f"{name} S={CHUNKED}"] = sum(
+            n for (_, s, _), n in w[name].shapes.items() if s == CHUNKED)
     return c
 
 
 def _reset_counts():
     for fn in _wrappers().values():
         fn.launches = 0
-        if hasattr(fn, "shapes"):
-            fn.shapes.clear()
+        fn.shapes.clear()
 
 
-def want_launches(cfg, size, steps, spatial, conv_impl, hires_steps=0):
-    """The exact launches of one request: ``steps`` UNet calls at ``size``,
-    then ``hires_steps`` at twice the size, one decode at the last size."""
-    calls = [(size, steps)] + ([(2 * size, hires_steps)] if hires_steps
-                               else [])
-    n = steps + hires_steps
+def want_launches(cfg, size, calls, spatial, conv_impl, hires_calls=0,
+                  text_s=TEXT):
+    """The exact launches of one request: ``calls`` UNet calls at ``size``,
+    then ``hires_calls`` at twice the size, one decode at the last size, on
+    a context of ``text_s`` positions."""
+    runs = [(size, calls)] + ([(2 * size, hires_calls)] if hires_calls
+                              else [])
+    n = calls + hires_calls
     level0 = (2 * size // 8) ** 2
     want = {"K1": PER_UNET * n if spatial else 0,
             "K2": PER_UNET * n * (1 if spatial else 2),
-            "K3": LEVELS[0][2] * hires_steps
+            "K3": LEVELS[0][2] * hires_calls
             if level0 == K3_SHAPES[0][0] else 0,
-            "K4": 0, "K5": 0, "K4b": 0}
+            "K4": 0, "K5": 0, "K4b": 0,
+            f"K1 S={CHUNKED}": 0, f"K2 S={CHUNKED}": 0}
+    if text_s == CHUNKED:
+        want[f"K{1 if spatial else 2} S={CHUNKED}"] = PER_UNET * n
     if conv_impl != "xla":
-        fused = [sh for sz, k in calls
+        fused = [sh for sz, k in runs
                  for sh in resnet_conv_shapes(cfg, sz, sz) * k
                  if sh[0] == "unet"]
-        last = calls[-1][0]
+        last = runs[-1][0]
         fused += [sh for sh in resnet_conv_shapes(cfg, last, last)
                   if sh[0] == "vae"]
         want["K4" if conv_impl == "pallas" else "K5"] = len(fused)
@@ -709,62 +796,145 @@ def _delta(after, before):
     return {k: after[k] - before[k] for k in after}
 
 
+def _gen_for(name, **kw):
+    """A GenerationConfig for a name of the app's sampler table."""
+    from diffusionspatialcontrol_tpu_torch import GenerationConfig
+    from diffusionspatialcontrol_tpu_torch.registry import SAMPLERS
+
+    spec = SAMPLERS[name]
+    return GenerationConfig(sampler=spec.solver, schedule=spec.schedule,
+                            **kw)
+
+
+def _tiny_cases():
+    """(label, conv_impl, spatial, hires, sampler name, prompt mode,
+    chunked): the requests of the tiny phase."""
+    base = [("spatial", "xla", True, None, "DPM++ 2M Karras", "short", False),
+            ("vanilla", "xla", False, None, "DPM++ 2M Karras", "short",
+             False),
+            ("spatial pallas", "pallas", True, None, "DPM++ 2M Karras",
+             "short", False),
+            ("spatial pallas2", "pallas2", True, None, "DPM++ 2M Karras",
+             "short", False),
+            ("hires", "xla", True, {}, "DPM++ 2M Karras", "short", False),
+            ("hires, Euler a Exponential pass", "xla", True,
+             {"sampler": "euler_ancestral", "schedule": "exponential"},
+             "DPM++ 2M Karras", "short", False),
+            ("a1111, 2 chunks", "xla", True, None, "DPM++ 2M SDE Karras",
+             "a1111", False),
+            ("long, 2 chunks", "xla", False, None, "Heun", "long", False),
+            ("chunked, paused and resumed", "xla", True, None,
+             "DPM++ 2M SDE Karras", "short", True)]
+    # every solver of the table, the four schedules in turn (the two
+    # img-to-img solvers exist on the default schedule only)
+    from diffusionspatialcontrol_tpu_torch.registry import SAMPLERS
+
+    suffixes = ("", " Karras", " Exponential", " Polyexponential")
+    first = {}  # solver -> its name on the default schedule
+    for name, spec in SAMPLERS.items():
+        first.setdefault(spec.solver, name)
+    for i, plain in enumerate(first.values()):
+        name = plain + suffixes[i % 4]
+        name = name if name in SAMPLERS else plain
+        base.append((f"sampler {name}", "xla", True, None, name, "short",
+                     False))
+    return base
+
+
 def phase_tiny(ctx):
     """Tiny config, fp32, the same weights and latents on the card (kernels)
     and on the CPU (their plain versions): spatial and vanilla requests with
-    plain convs, spatial ones with the fused resnet convs (K4, K5), and a
-    hires request (64^2 -> 128^2, 4 + 2 steps, the map re-encoded).
+    plain convs, spatial ones with the fused resnet convs (K4, K5), hires
+    requests (64^2 -> 128^2, 4 + 2 steps, the map re-encoded; one with
+    Euler a on exponential sigmas for the hires pass), every solver of the
+    app's table, two-chunk prompts in the "a1111" mode (with the map) and
+    the "long" mode (its ids, 75 n + 2, do not match its 77 n context, so
+    it takes no map: both devices must refuse one, as the JAX package
+    fails on one), and a chunked run (2 steps a chunk) paused after its
+    first chunk and resumed, which must equal the plain run bit for bit on
+    the card. Launches: 16 of K1 and K2 per UNet call (CFG pair), the calls
+    counted at the denoiser, and the same calls on both devices.
     Tolerance: 2e-4 on fp32 pixels in [-1, 1] and +-1 on uint8. Both sides
     compute in fp32 (TF32 is off), but cuDNN and ATen's CPU convolutions,
     the kernels' online softmax and the conv kernels sum in other orders,
     through 4 steps of ~40 layers: an H100 run differed by 5e-6, and the
     port and the JAX package agree to 1e-4 on the CPU
     (tests/test_torch_pipeline.py)."""
-    from diffusionspatialcontrol_tpu_torch import GenerationConfig, tiny_config
+    from diffusionspatialcontrol_tpu_torch import tiny_config
     from diffusionspatialcontrol_tpu_torch.models.factory import (
         init_pipeline_params,
     )
     from diffusionspatialcontrol_tpu_torch.pipeline.pipeline import (
+        ChunkedPause,
         StableDiffusionTorch,
     )
     from diffusionspatialcontrol_tpu_torch.text.tokenizer import HashTokenizer
 
     cfg = tiny_config()
     cpu = torch.device("cpu")
-    params = init_pipeline_params(0, cfg, torch.float32, device=cpu)
+    params = _with_text_bias(init_pipeline_params(0, cfg, torch.float32,
+                                                  device=cpu), 0)
     on = {cpu.type: params, "cuda": _tree_to(params, ctx["device"])}
-    gen = GenerationConfig(height=64, width=64, num_inference_steps=4,
-                           dtype=torch.float32)
     lat = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (1, 8, 8, 4)).astype(np.float32))
-    cases = (("spatial", "xla", True, False), ("vanilla", "xla", False, False),
-             ("spatial pallas", "pallas", True, False),
-             ("spatial pallas2", "pallas2", True, False),
-             ("hires", "xla", True, True))
-    for label, conv_impl, spatial, hires in cases:
-        out = {}
+    for label, conv_impl, spatial, hires, sampler, mode, chunked in \
+            _tiny_cases():
+        gen = _gen_for(sampler, height=64, width=64, num_inference_steps=4,
+                       dtype=torch.float32)
+        prompt = PROMPT if mode == "short" else LONG_PROMPT
+        out, calls = {}, {}
         for kind in ("cpu", "cuda"):
             pipe = StableDiffusionTorch(cfg, on[kind],
                                         tokenizer=HashTokenizer(),
                                         conv_impl=conv_impl, device=kind)
-            c, ids = pipe.encode_prompt([PROMPT], [NEG])
+            c, ids = pipe.encode_prompt([prompt], [NEG], mode=mode)
             rb = (pipe.encode_region([_masks(64, 64)], ids, 64, 64)
                   if spatial else None)
-            opts = ({"scale": 2.0, "strength": 0.6,
-                     "region_state": ([_masks(64, 64)], ids, 1)}
-                    if hires else None)
+            if mode == "long":
+                try:
+                    pipe.txt2img(c, gen, latents=lat, region_biases=pipe.
+                                 encode_region([_masks(64, 64)], ids, 64,
+                                               64))
+                except ValueError:
+                    pass
+                else:
+                    raise AssertionError(f"tiny {label} on {kind}: a map "
+                                         f"from long-mode ids was taken")
+            opts = None
+            if hires is not None:
+                opts = dict(hires, scale=2.0, strength=0.6,
+                            region_state=([_masks(64, 64)], ids, 1))
             before = _counts()
-            img = pipe.txt2img(c, gen, latents=lat, region_biases=rb,
-                               hires=opts)
+            with UNetCalls() as n:
+                img = pipe.txt2img(c, gen, latents=lat, region_biases=rb,
+                                   hires=opts)
+                if chunked:
+                    pause = pipe.sample_chunked(
+                        c, gen, latents=lat, region_biases=rb,
+                        chunk_steps=2, on_chunk=lambda done, total: False)
+                    if not isinstance(pause, ChunkedPause):
+                        raise AssertionError(f"tiny {label}: no pause")
+                    resumed = pipe.sample_chunked(
+                        c, gen, latents=lat, region_biases=rb,
+                        chunk_steps=2, resume=pause)
+                    if not torch.equal(resumed, img):
+                        raise AssertionError(
+                            f"tiny {label} on {kind}: the paused and resumed"
+                            f" run differs from the plain run by "
+                            f"{float((resumed - img).abs().max()):.3e}")
             got = _delta(_counts(), before)
-            want = (want_launches(cfg, 64, 4, spatial, conv_impl,
-                                  2 if hires else 0) if kind == "cuda"
+            calls[kind] = n.n
+            want = (want_launches(cfg, 64, n.n, spatial, conv_impl,
+                                  text_s=c.shape[1]) if kind == "cuda"
                     else dict.fromkeys(got, 0))
             if got != want:
                 raise AssertionError(f"tiny {label} on {kind}: launches "
                                      f"{got}, expected {want}")
             out[kind] = img.cpu()
-        side = 128 if hires else 64
+        if calls["cpu"] != calls["cuda"]:
+            log(f"tiny: {label}: {calls['cuda']} UNet calls on the card, "
+                f"{calls['cpu']} on the CPU")
+        side = 128 if hires is not None else 64
         if out["cuda"].shape != (1, side, side, 3):
             raise AssertionError(f"tiny {label}: image {out['cuda'].shape}")
         err = check_close(f"tiny {label}", out["cuda"], out["cpu"], 0.0, 2e-4)
@@ -773,8 +943,10 @@ def phase_tiny(ctx):
         u8_err = int((u8[0] - u8[1]).abs().max())
         if u8_err > 1:
             raise AssertionError(f"tiny {label}: uint8 differs by {u8_err}")
-        log(f"tiny: {label}: card vs CPU max abs err {err:.2e} (fp32), "
-            f"{u8_err} (uint8); launches {want}")
+        log(f"tiny: {label} ({gen.sampler}, {gen.schedule}, {mode}, S = "
+            f"{c.shape[1]}): card vs CPU max abs err {err:.2e} (fp32), "
+            f"{u8_err} (uint8); {calls['cuda']} UNet calls, launches "
+            f"{ {k: v for k, v in want.items() if v} }")
 
 
 def phase_main(ctx):
@@ -790,7 +962,7 @@ def phase_main(ctx):
 
     cfg = sd15_config()
     t0 = time.perf_counter()
-    params = init_pipeline_params(0, cfg, torch.bfloat16)
+    params = _with_text_bias(init_pipeline_params(0, cfg, torch.bfloat16), 0)
     pipes = {ci: StableDiffusionTorch(cfg, params, tokenizer=load_tokenizer(),
                                       conv_impl=ci)
              for ci in ("xla", "pallas", "pallas2")}
@@ -802,43 +974,70 @@ def phase_main(ctx):
     gen = GenerationConfig(height=512, width=512, num_inference_steps=STEPS,
                            guidance_scale=7.5, sampler="dpmpp_2m",
                            schedule="karras")
+    gen_sde = _gen_for("DPM++ 2M SDE Karras", height=512, width=512,
+                       num_inference_steps=STEPS, guidance_scale=7.5,
+                       eta=1.0)
+    gen_heun = _gen_for("Heun", height=512, width=512,
+                        num_inference_steps=STEPS, guidance_scale=7.5)
     c1, ids1 = pipe.encode_prompt([PROMPT], [NEG], clip_skip=2)
     c2, ids2 = pipe.encode_prompt([PROMPT] * 2, [NEG] * 2, clip_skip=2)
+    ca, idsa = pipe.encode_prompt([LONG_PROMPT], [NEG], clip_skip=2,
+                                  mode="a1111")
+    cl, _ = pipe.encode_prompt([LONG_PROMPT], [NEG], clip_skip=2,
+                               mode="long")
+    if ca.shape[1] != CHUNKED or cl.shape[1] != CHUNKED:
+        raise AssertionError(f"main: two-chunk contexts of {ca.shape[1]} "
+                             f"and {cl.shape[1]} positions")
     state = _masks(512, 512)
     rb1 = pipe.encode_region([state], ids1, height=512, width=512)
     rb2 = pipe.encode_region([state, state], ids2, height=512, width=512)
+    rba = pipe.encode_region([state], idsa, height=512, width=512)
     hires = {"scale": HIRES / 512, "strength": 0.6,
              "region_state": ([state], ids1, 1)}
     hires_steps = int(STEPS * hires["strength"])  # what img2img keeps
+    heun_calls = 2 * STEPS - 1  # no correction on the step to sigma = 0
 
-    requests = (  # (type, conv_impl, context, biases, hires, seeds: the
-        #           first is a warm-up)
-        ("spatial", "xla", c1, rb1, None, [0, 1, 2, 3, 4, 5]),
-        ("vanilla", "xla", c1, None, None, [0, 1, 2, 3, 4, 5]),
-        ("spatial_b2", "xla", c2, rb2, None, [[0, 1], [2, 3], [4, 5],
-                                              [6, 7]]),
-        ("spatial_pallas", "pallas", c1, rb1, None, [0, 1, 2, 3]),
-        ("spatial_pallas2", "pallas2", c1, rb1, None, [0, 1, 2, 3]),
-        ("hires", "xla", c1, rb1, hires, [0, 1, 2]),
-        ("hires_pallas", "pallas", c1, rb1, hires, [0, 1]),
+    requests = (  # (type, conv_impl, gen, context, biases, hires, UNet
+        #           calls, hires calls, seeds: the first is a warm-up)
+        ("spatial", "xla", gen, c1, rb1, None, STEPS, 0, [0, 1, 2, 3, 4, 5]),
+        ("vanilla", "xla", gen, c1, None, None, STEPS, 0, [0, 1, 2, 3, 4, 5]),
+        ("spatial_b2", "xla", gen, c2, rb2, None, STEPS, 0,
+         [[0, 1], [2, 3], [4, 5], [6, 7]]),
+        ("spatial_pallas", "pallas", gen, c1, rb1, None, STEPS, 0,
+         [0, 1, 2, 3]),
+        ("spatial_pallas2", "pallas2", gen, c1, rb1, None, STEPS, 0,
+         [0, 1, 2, 3]),
+        ("hires", "xla", gen, c1, rb1, hires, STEPS, hires_steps, [0, 1, 2]),
+        ("hires_pallas", "pallas", gen, c1, rb1, hires, STEPS, hires_steps,
+         [0, 1]),
+        ("spatial_a1111", "xla", gen_sde, ca, rba, None, STEPS, 0,
+         [0, 1, 2, 3]),
+        ("vanilla_long_heun", "xla", gen_heun, cl, None, None, heun_calls, 0,
+         [0, 1, 2, 3]),
     )
     _reset_counts()
-    p50 = {}
-    for kind, conv_impl, ctx_, rb, opts, seeds in requests:
+    p50, seconds = {}, {}
+    for (kind, conv_impl, gen_, ctx_, rb, opts, calls, hr_calls,
+         seeds) in requests:
+        t_kind = time.perf_counter()
         side = HIRES if opts else 512
-        want = want_launches(cfg, 512, STEPS, rb is not None, conv_impl,
-                             hires_steps if opts else 0)
+        want = want_launches(cfg, 512, calls, rb is not None, conv_impl,
+                             hr_calls, text_s=ctx_.shape[1])
         per_image = []
         for i, seed in enumerate(seeds):
             batch = len(seed) if isinstance(seed, list) else 1
             before = _counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            img = pipes[conv_impl].txt2img(ctx_, gen, seed=seed,
-                                           region_biases=rb, hires=opts)
-            u8 = pipe.to_uint8(img).cpu()
+            with UNetCalls() as n:
+                img = pipes[conv_impl].txt2img(ctx_, gen_, seed=seed,
+                                               region_biases=rb, hires=opts)
+                u8 = pipe.to_uint8(img).cpu()
             dt = time.perf_counter() - t0
             launches = _delta(_counts(), before)
+            if n.n != calls + hr_calls:
+                raise AssertionError(f"main {kind} seed {seed}: {n.n} UNet "
+                                     f"calls, expected {calls + hr_calls}")
             if launches != want:
                 raise AssertionError(f"main {kind} seed {seed}: launches "
                                      f"{launches}, expected {want}")
@@ -854,24 +1053,32 @@ def phase_main(ctx):
                 raise AssertionError(f"main {kind}: uint8 {tuple(u8.shape)}")
             log(f"main: {kind} seed {seed}: {dt:.3f} s "
                 f"({'warm-up' if i == 0 else f'{dt / batch:.3f} s/image'}), "
-                f"launches {launches}, image mean {float(img.mean()):+.4f} "
-                f"std {float(img.std()):.4f}")
+                f"{n.n} UNet calls, launches "
+                f"{ {k: v for k, v in launches.items() if v} }, image mean "
+                f"{float(img.mean()):+.4f} std {float(img.std()):.4f}")
             if i:
                 per_image.append(dt / batch)
         p50[kind] = float(np.median(per_image))
+        seconds[kind] = time.perf_counter() - t_kind
     ctx["launches"] = _counts()
     ctx["p50"] = p50
     log("main: p50 s/image after one warm-up: " + ", ".join(
         f"{k} {v:.4f}" for k, v in p50.items())
         + f"; launches {ctx['launches']} (card: {card_line()})")
+    log("main: seconds by request type: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()))
     if min(ctx["launches"].values()) == 0:
         raise AssertionError("main: a kernel of the path never launched")
-    for kind, conv_impl, rb, opts in (
-            ("spatial", "xla", rb1, None), ("vanilla", "xla", None, None),
-            ("spatial_pallas", "pallas", rb1, None),
-            ("spatial_pallas2", "pallas2", rb1, None),
-            ("hires", "xla", rb1, hires)):
-        profile_request(pipes[conv_impl], c1, gen, rb, kind, p50[kind], opts)
+    for kind, conv_impl, gen_, ctx_, rb, opts in (
+            ("spatial", "xla", gen, c1, rb1, None),
+            ("vanilla", "xla", gen, c1, None, None),
+            ("spatial_pallas", "pallas", gen, c1, rb1, None),
+            ("spatial_pallas2", "pallas2", gen, c1, rb1, None),
+            ("hires", "xla", gen, c1, rb1, hires),
+            ("spatial_a1111", "xla", gen_sde, ca, rba, None),
+            ("vanilla_long_heun", "xla", gen_heun, cl, None, None)):
+        profile_request(pipes[conv_impl], ctx_, gen_, rb, kind, p50[kind],
+                        opts)
 
 
 KERNEL_GROUPS = (  # (group, test on the lower-cased kernel name)
@@ -893,11 +1100,14 @@ def profile_request(pipe, context, gen, region_biases, kind, p50_s,
     of kernel times) against the request's unprofiled p50 wall time, kernel
     launches, and device time by kernel group and by kernel. The profiler's
     own cost on the host inflates the profiled wall time, so the busy share
-    is taken against the p50."""
+    is taken against the p50. Host ops are recorded too, as in every
+    earlier sitting, so that the busy times stay comparable; the log line
+    gives the seconds the profile took to collect and sum."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    t_all = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -907,6 +1117,8 @@ def profile_request(pipe, context, gen, region_biases, kind, p50_s,
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError(f"profile: {kind}: no device time recorded")
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     count = sum(e.count for e in kernels)
     groups = {g: 0.0 for g, _ in KERNEL_GROUPS}
@@ -918,7 +1130,8 @@ def profile_request(pipe, context, gen, region_biases, kind, p50_s,
         f"{100 * busy_ms / (1e3 * p50_s):.1f}% of the p50 wall "
         f"({1e3 * p50_s:.1f} ms; {wall_ms:.1f} ms profiled), {count} kernel "
         f"launches; by group (ms): " + ", ".join(
-            f"{g} {t:.1f}" for g, t in groups.items()))
+            f"{g} {t:.1f}" for g, t in groups.items())
+        + f"; profiled and summed in {time.perf_counter() - t_all:.1f} s")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
         log(f"profile: {kind}:   {e.self_device_time_total / 1e3:8.2f} ms "
@@ -959,6 +1172,9 @@ def kernels_line(ctx):
             "library_ms": r["library_ms"], "per": per, "shapes": r["shapes"]})
         if key == "K4":
             out[-1]["launches_at_k4b_shapes"] = ctx["launches"]["K4b"]
+        if key in ("K1", "K2"):
+            out[-1][f"launches_at_s{CHUNKED}"] = ctx["launches"][
+                f"{key} S={CHUNKED}"]
     return json.dumps({"kernels": out})
 
 

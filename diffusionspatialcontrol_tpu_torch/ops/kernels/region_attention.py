@@ -16,11 +16,13 @@ and std stay 0-d device tensors, so nothing here waits for the card.
 
 Dispatch: CPU tensors take ``region_softmax_attention_plain``; CUDA tensors
 launch the kernel or raise. ``region_softmax_attention.launches`` counts
-launches; the launcher adds to it, so every launch counts, whoever calls it.
+launches and ``region_softmax_attention.shapes`` tallies them by (L, S, D);
+the launcher adds to both, so every launch counts, whoever calls it.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -69,6 +71,7 @@ def region_softmax_attention_kernel(q, k, v, w):
              strides_arg(q, k, v, out), 1.0 / math.sqrt(d), stream_arg(q))
     raise_on_error(err, "region_attention")
     region_softmax_attention.launches += 1
+    region_softmax_attention.shapes[(l, s_len, d)] += 1
     return out
 
 
@@ -80,6 +83,7 @@ def region_softmax_attention(q, k, v, w):
 
 
 region_softmax_attention.launches = 0
+region_softmax_attention.shapes = collections.Counter()
 
 
 def region_attention_nlhd(q, k, v, region_state, sigma,

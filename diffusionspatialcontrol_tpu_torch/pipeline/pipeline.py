@@ -1,10 +1,14 @@
-"""txt2img with region control and hires fix (port of
+"""txt2img with region control, hires fix and chunked sampling (port of
 ``pipeline/pipeline.py``).
 
-``StableDiffusionTorch`` is the counterpart of ``StableDiffusionTPU`` on the
-main path: prompt and region encoding, the sigma-space denoiser with CFG,
-the DPM++ 2M loop on Karras sigmas, VAE decode and uint8 conversion; hires
-fix (latent upscale, then img2img on the latents at the target size).
+``StableDiffusionTorch`` is the counterpart of ``StableDiffusionTPU``:
+prompt encoding in the three modes, region encoding, the sigma-space
+denoiser with CFG, every solver of ``samplers.solvers.SOLVERS`` on each of
+the four schedules, VAE decode and uint8 conversion; hires fix (latent
+upscale, then img2img on the latents at the target size, optionally with
+another sampler and schedule); per-step latent history; and
+``sample_chunked``, which returns to the caller between chunks of steps to
+report progress, cancel or pause.
 
 Math parity notes (as in the JAX package):
   * initial latents are scaled by (sigma_0^2 + 1)^0.5;
@@ -14,14 +18,14 @@ Math parity notes (as in the JAX package):
     the fractional timestep from log-sigma interpolation.
 
 Randomness: each sample draws its initial latents (and img2img its noise)
-from its own CPU ``torch.Generator``, so a sample's result depends only on
-its seed, not on the batch it rides in or the device. The streams differ
-from JAX's threefry streams; tests pass ``latents=`` and patch
-``initial_noise`` to compare the two packages.
+and then its solver noise from its own CPU ``torch.Generator``
+(``samplers.brownian``), so a sample's result depends only on its seed, not
+on the batch it rides in, on the device or on whether latents were passed.
+The streams differ from JAX's threefry streams; tests pass ``latents=`` and
+patch ``initial_noise`` and ``_solver_noise`` to compare the two packages.
 
-Not ported yet: img2img from images (``vae_encode``), inpaint, the other 21
-solvers and hires sampler overrides, ControlNet, T2I-Adapter, IP-Adapter,
-chunked sampling, latent history and the speed modes.
+Not ported yet: img2img from images (``vae_encode``), inpaint, ControlNet,
+T2I-Adapter, IP-Adapter and the speed modes.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from ..models.layers import check_conv_impl
 from ..models.unet import RegionState, UNetCond, flash_options, unet_apply
 from ..models.vae import vae_decode
 from ..ops.resize import resize_latents
-from ..samplers import schedules, solvers
+from ..samplers import brownian, schedules, solvers
 
 SeedT = Union[int, Sequence[int]]
 
@@ -88,6 +92,14 @@ def make_denoise_fn(
     """The sigma-space denoiser D(x; sigma); sigma is a 0-d fp32 tensor."""
     do_cfg = guidance_scale > 1.0
     context = context.to(compute_dtype)
+    if region_biases is not None and region_biases[0].shape[-1] != \
+            context.shape[1]:
+        raise ValueError(
+            f"the region map was built for {region_biases[0].shape[-1]} "
+            f"token ids but the context has {context.shape[1]} positions; "
+            f"prompt mode 'long' returns the ids of its 75 n + 2 layout for "
+            f"a context of 77 n, so its ids cannot build a map (nor can they "
+            f"in the JAX package)")
     if do_cfg:
         context = _interleave_cfg(context)
         if region_biases is not None:
@@ -160,20 +172,36 @@ def _next_seed(seed: SeedT) -> SeedT:
 
 def _check_hires(hires: dict) -> None:
     """Raise on the hires options the port does not take yet."""
-    if hires.get("sampler") not in (None, "dpmpp_2m"):
-        raise NotImplementedError(
-            f"hires sampler {hires['sampler']!r} is not ported yet; the "
-            f"hires pass runs 'dpmpp_2m'")
-    if hires.get("schedule") not in (None, "karras"):
-        raise NotImplementedError(
-            f"hires schedule {hires['schedule']!r} is not ported yet")
     if hires.get("rebuild_extras") is not None:
         raise NotImplementedError(
             "hires['rebuild_extras'] is not ported yet (no extras are)")
 
 
+def _check_unsupported(unsupported: dict) -> None:
+    if any(v not in (None, False) for v in unsupported.values()):
+        raise NotImplementedError(
+            f"not ported yet: {sorted(unsupported)} (extras come with later "
+            f"slices)")
+
+
+@dataclasses.dataclass
+class ChunkedPause:
+    """The solver state at a chunk boundary of
+    :meth:`StableDiffusionTorch.sample_chunked`. The schedule, the noise
+    table and the initial latents follow from the call's arguments, so
+    resuming with the same arguments and this state gives the same result,
+    bit for bit, as a run that never paused."""
+
+    x: torch.Tensor  # current latents (sigma space)
+    carry: Any  # the solver's carry
+    pos: int  # steps done
+    n_total: int  # steps of the schedule (checked on resume)
+
+
 class StableDiffusionTorch:
-    """txt2img with optional region control and hires fix.
+    """txt2img and img2img on latents with optional region control, every
+    solver and schedule of the app's sampler table, hires fix and chunked
+    sampling.
 
     ``device`` defaults to CUDA and raises when there is none; CPU runs pass
     ``device="cpu"``. ``attn_impl`` takes the JAX package's kernel strings,
@@ -235,69 +263,120 @@ class StableDiffusionTorch:
 
     # -- sampling -----------------------------------------------------------
 
-    def _schedule(self, gen: GenerationConfig) -> np.ndarray:
-        if gen.sampler != "dpmpp_2m":
-            raise NotImplementedError(
-                f"sampler {gen.sampler!r} is not ported yet; use 'dpmpp_2m'")
-        return schedules.get_sigmas(self.model_cfg, gen.num_inference_steps,
-                                    gen.schedule)
+    def _schedule(self, gen: GenerationConfig):
+        """(sigmas, the solver's default options)."""
+        _, _, defaults = solvers.SOLVERS[gen.sampler]
+        sigmas = schedules.get_sigmas(
+            self.model_cfg, gen.num_inference_steps, gen.schedule,
+            defaults.get("discard_next_to_last_sigma", False))
+        return sigmas, defaults
 
-    def _sample(self, x, context, region_biases, sigmas, gen, decode,
-                uint8_output):
-        denoise = make_denoise_fn(
+    def _solver_noise(self, seeds: Sequence[int], sigmas: np.ndarray,
+                      shape: Tuple[int, ...], solver_name: str):
+        """The per-step noise table of ``shape`` = (B, h, w, 4), or None for
+        a deterministic solver."""
+        _, draws, _ = solvers.SOLVERS[solver_name]
+        if draws == 0:
+            return None
+        return brownian.step_noise(
+            seeds, solvers.scan_length(solver_name, sigmas), draws,
+            tuple(shape[1:]), self.device)
+
+    def _solver_opts(self, gen: GenerationConfig, defaults: dict) -> dict:
+        opts = {k: v for k, v in defaults.items()
+                if k not in ("discard_next_to_last_sigma", "brownian")}
+        if gen.sampler in ("euler_ancestral", "dpm_2_ancestral",
+                           "dpmpp_2s_ancestral", "dpmpp_sde", "dpmpp_2m_sde",
+                           "dpmpp_2m_sde_heun", "dpmpp_3m_sde"):
+            opts["eta"] = gen.eta
+        return opts
+
+    def _denoiser(self, context, region_biases, gen):
+        return make_denoise_fn(
             self.params, self.model_cfg, context.to(self.device),
             region_biases, self.log_sigma_table, gen.guidance_scale,
             gen.guidance_rescale, self.attn_impl, compute_dtype=gen.dtype,
             conv_impl=self.conv_impl)
-        x = solvers.sample_dpmpp_2m(denoise, x, sigmas)
-        if not decode:
-            return x
+
+    def _decode(self, x, uint8_output):
         images = vae_decode(self.params["vae"], self.model_cfg.vae, x,
                             conv_impl=self.conv_impl)
         return to_uint8(images) if uint8_output else images
+
+    def _sample(self, x, context, region_biases, sigmas, gen, noise, decode,
+                uint8_output, return_history=False):
+        solver_fn, _, defaults = solvers.SOLVERS[gen.sampler]
+        res = solver_fn(self._denoiser(context, region_biases, gen), x,
+                        sigmas, noise=noise, return_history=return_history,
+                        **self._solver_opts(gen, defaults))
+        x, hist = res if return_history else (res, None)
+        if decode:
+            x = self._decode(x, uint8_output)
+        return (x, hist) if return_history else x
+
+    def _init(self, gen, sigmas, seed, batch_size, latents):
+        """(seeds, scaled initial latents, solver noise) of a txt2img run."""
+        if latents is not None:
+            latents = torch.as_tensor(latents, dtype=torch.float32,
+                                      device=self.device)
+            batch_size = latents.shape[0]
+        seeds = _seed_list(seed, batch_size)
+        shape = (gen.latent_height, gen.latent_width, 4)
+        if latents is None:
+            latents = initial_noise(seeds, shape, self.device)
+        if len(seeds) != latents.shape[0]:
+            raise ValueError(f"seed list length {len(seeds)} != batch "
+                             f"{latents.shape[0]}")
+        x = latents * float(np.sqrt(sigmas[0] ** 2 + 1.0))
+        noise = self._solver_noise(seeds, sigmas, (len(seeds),) + shape,
+                                   gen.sampler)
+        return x, noise
 
     @torch.inference_mode()
     def txt2img(self, context: torch.Tensor, gen: GenerationConfig,
                 seed: SeedT = 0, region_biases=None, batch_size: int = 1,
                 decode: bool = True, latents: Optional[torch.Tensor] = None,
                 uint8_output: bool = False, hires: Optional[dict] = None,
-                **unsupported):
+                return_history: bool = False, **unsupported):
         """txt2img on a pre-encoded context. Returns images (B, H, W, 3),
         fp32 in [-1, 1] (uint8 with ``uint8_output``), or the final latents
-        with ``decode=False``.
+        with ``decode=False``. ``gen.sampler`` names a solver of
+        ``samplers.solvers.SOLVERS`` and ``gen.schedule`` its schedule (the
+        app's sampler names map to both through ``registry.SAMPLERS``).
 
         ``seed``: an int, or a list with one seed per sample. An int seed
         with ``batch_size`` B seeds the samples with seed, seed+1, ...
         ``latents``: (B, h, w, 4) standard-normal initial latents to use
         instead of the seeded draw; they are scaled by sqrt(sigma_0^2+1).
+        The solver noise comes from the seeds either way.
 
         ``hires``: optional dict(scale=2.0, strength=0.6, steps=None,
-        mode="bilinear", antialias=False, region_state=None), as in the JAX
-        package: the base pass's latents are resized by ``scale`` (modes of
-        ``ops.resize``) and refined by ``img2img`` at the target size, with
-        the seed ``_next_seed(seed)``. ``region_state`` = (states, prompt
-        ids, num_images_per_prompt) re-encodes the region map at the target
-        size; without it the hires pass runs without region control. The
-        ``uint8_output`` flag applies to the hires pass's images."""
-        if any(v not in (None, False) for v in unsupported.values()):
-            raise NotImplementedError(
-                f"not ported yet: {sorted(unsupported)} (extras and history "
-                f"come with later slices)")
+        mode="bilinear", antialias=False, sampler=None, schedule=None,
+        region_state=None), as in the JAX package: the base pass's latents
+        are resized by ``scale`` (modes of ``ops.resize``) and refined by
+        ``img2img`` at the target size, with the seed ``_next_seed(seed)``
+        and, where given, another solver and schedule. ``region_state`` =
+        (states, prompt ids, num_images_per_prompt) re-encodes the region
+        map at the target size; without it the hires pass runs without
+        region control. The ``uint8_output`` flag applies to the hires
+        pass's images.
+
+        ``return_history``: also return the latents after every step,
+        (n_steps, B, h, w, 4); with hires, ``(images, [base history, hires
+        history])``."""
+        _check_unsupported(unsupported)
         if hires is not None:
             _check_hires(hires)
-        sigmas = self._schedule(gen)
-        seeds = _seed_list(seed, batch_size)
-        shape = (gen.latent_height, gen.latent_width, 4)
-        if latents is None:
-            latents = initial_noise(seeds, shape, self.device)
-        else:
-            latents = torch.as_tensor(latents, dtype=torch.float32,
-                                      device=self.device)
-        x = latents * float(np.sqrt(sigmas[0] ** 2 + 1.0))
-        out = self._sample(x, context, region_biases, sigmas, gen,
-                           decode and hires is None, uint8_output)
+        sigmas, _ = self._schedule(gen)
+        x, noise = self._init(gen, sigmas, seed, batch_size, latents)
+        out = self._sample(x, context, region_biases, sigmas, gen, noise,
+                           decode and hires is None, uint8_output,
+                           return_history)
         if hires is None:
             return out
+        base_history = None
+        if return_history:
+            out, base_history = out
 
         scale = float(hires.get("scale", 2.0))
         new_h = int(gen.height * scale) // 8
@@ -307,7 +386,9 @@ class StableDiffusionTorch:
                             antialias=bool(hires.get("antialias", False)))
         gen_hr = dataclasses.replace(
             gen, height=new_h * 8, width=new_w * 8,
-            num_inference_steps=hires.get("steps") or gen.num_inference_steps)
+            num_inference_steps=hires.get("steps") or gen.num_inference_steps,
+            sampler=hires.get("sampler") or gen.sampler,
+            schedule=hires.get("schedule") or gen.schedule)
         hr_biases = None
         if hires.get("region_state") is not None:
             states, ids, nipp = hires["region_state"]
@@ -315,25 +396,28 @@ class StableDiffusionTorch:
                 states, ids, height=gen_hr.height, width=gen_hr.width,
                 num_images_per_prompt=nipp,
                 do_cfg=gen_hr.guidance_scale > 1.0)
-        return self.img2img(context, up, gen_hr,
-                            strength=float(hires.get("strength", 0.6)),
-                            seed=_next_seed(seed), region_biases=hr_biases,
-                            decode=decode, uint8_output=uint8_output)
+        hr_out = self.img2img(context, up, gen_hr,
+                              strength=float(hires.get("strength", 0.6)),
+                              seed=_next_seed(seed), region_biases=hr_biases,
+                              decode=decode, uint8_output=uint8_output,
+                              return_history=return_history)
+        if return_history:
+            hr_out, hr_history = hr_out
+            return hr_out, [base_history, hr_history]
+        return hr_out
 
     @torch.inference_mode()
     def img2img(self, context: torch.Tensor, init_latents: torch.Tensor,
                 gen: GenerationConfig, strength: float = 0.8,
                 seed: SeedT = 0, region_biases=None, decode: bool = True,
-                uint8_output: bool = False, **unsupported):
+                uint8_output: bool = False, return_history: bool = False,
+                **unsupported):
         """img2img on latents: the schedule is cut by ``strength`` and the
         init latents are noised to its first sigma. ``init_latents`` are
         (B, h, w, 4) *scaled* latents; ``seed`` as in ``txt2img``. Returns
         what ``txt2img`` returns."""
-        if any(v not in (None, False) for v in unsupported.values()):
-            raise NotImplementedError(
-                f"not ported yet: {sorted(unsupported)} (extras and history "
-                f"come with later slices)")
-        sigmas = self._schedule(gen)
+        _check_unsupported(unsupported)
+        sigmas, _ = self._schedule(gen)
         steps = gen.num_inference_steps
         t_start = max(steps - min(int(steps * strength), steps), 0)
         sigma_sched = sigmas[t_start:]
@@ -343,9 +427,60 @@ class StableDiffusionTorch:
         if len(seeds) != init.shape[0]:
             raise ValueError(f"img2img seed list length {len(seeds)} != "
                              f"batch {init.shape[0]}")
-        noise = initial_noise(seeds, tuple(init.shape[1:]), self.device)
-        x = init + noise * float(np.sqrt(sigma_sched[0] ** 2 + 1.0))
+        noise0 = initial_noise(seeds, tuple(init.shape[1:]), self.device)
+        x = init + noise0 * float(np.sqrt(sigma_sched[0] ** 2 + 1.0))
+        noise = self._solver_noise(seeds, sigma_sched, tuple(init.shape),
+                                   gen.sampler)
         return self._sample(x, context, region_biases, sigma_sched, gen,
-                            decode, uint8_output)
+                            noise, decode, uint8_output, return_history)
+
+    @torch.inference_mode()
+    def sample_chunked(self, context: torch.Tensor, gen: GenerationConfig,
+                       seed: SeedT = 0, region_biases=None,
+                       batch_size: int = 1, chunk_steps: int = 8,
+                       on_chunk=None, latents: Optional[torch.Tensor] = None,
+                       decode: bool = True, uint8_output: bool = False,
+                       resume: Optional[ChunkedPause] = None):
+        """txt2img that returns to the caller every ``chunk_steps`` solver
+        steps: after each chunk it waits for the device and calls
+        ``on_chunk(steps_done, steps_total)``, which may raise to cancel the
+        run or return ``False`` to pause it; a paused run returns a
+        :class:`ChunkedPause`, and passing that back as ``resume=`` with the
+        same other arguments continues it. The chunks run the same step loop
+        over slices of the full schedule with the solver's carry passed
+        through, so the result is bitwise equal to ``txt2img``'s, paused or
+        not. ``dpm_fast`` and ``dpm_adaptive`` have no fixed steps to slice
+        and raise ``ValueError``."""
+        if gen.sampler not in solvers.CHUNKABLE:
+            raise ValueError(
+                f"solver {gen.sampler!r} does not support chunked execution "
+                f"(host-unrolled or adaptive)")
+        sigmas, defaults = self._schedule(gen)
+        latents, noise = self._init(gen, sigmas, seed, batch_size, latents)
+        n_total = solvers.scan_length(gen.sampler, sigmas)
+        if resume is not None:
+            if resume.n_total != n_total:
+                raise ValueError(
+                    "resume state was captured under a different schedule "
+                    f"({resume.n_total} steps vs {n_total})")
+            carry, x, pos = resume.carry, resume.x, int(resume.pos)
+        else:
+            carry, x, pos = None, latents, 0
+        solver_fn = solvers.SOLVERS[gen.sampler][0]
+        denoise = self._denoiser(context, region_biases, gen)
+        opts = self._solver_opts(gen, defaults)
+        while pos < n_total:
+            size = min(int(chunk_steps), n_total - pos)
+            x, carry = solver_fn(denoise, latents, sigmas, noise=noise,
+                                 carry_in=carry, segment=(pos, size),
+                                 return_carry=True, **opts)
+            if x.is_cuda:  # the re-entry point: the chunk has run
+                torch.cuda.synchronize(x.device)
+            pos += size
+            if on_chunk is not None and on_chunk(pos, n_total) is False \
+                    and pos < n_total:
+                return ChunkedPause(x=x, carry=carry, pos=pos,
+                                    n_total=n_total)
+        return self._decode(x, uint8_output) if decode else x
 
     to_uint8 = staticmethod(to_uint8)

@@ -1,9 +1,11 @@
-"""Prompt encoding front end (port of ``text/encoder.py``), "short" mode.
+"""Prompt encoding front end (port of ``text/encoder.py``).
 
-Returns ``(context, cond_ids_per_prompt)``: context stacks
-[uncond..., cond...] for CFG, and the raw cond token ids feed the region-map
-n-gram matcher. The "a1111" and "long" modes need ``text/prompt_parser.py``,
-which is not ported yet.
+Three modes, as in the JAX package: "a1111" (or "automatic1111": A1111
+emphasis and 77-token chunks), "long" (weighted tokens over up to 3 chunks)
+and "short" (one 77-token CLIP encode). The first two live in
+``text/prompt_parser.py``. Every mode returns ``(context,
+cond_ids_per_prompt)``: context stacks [uncond..., cond...] for CFG, and the
+raw cond token ids feed the region-map n-gram matcher.
 """
 
 from __future__ import annotations
@@ -39,10 +41,15 @@ def encode_prompts(
     num_images_per_prompt: int = 1,
     device=None,
 ) -> Tuple[torch.Tensor, List[List[int]]]:
-    if mode != "short":
-        raise NotImplementedError(
-            f"prompt mode {mode!r} needs the A1111 prompt parser, which the "
-            f"port does not have yet; use mode='short'")
+    if mode in ("a1111", "automatic1111", "long"):
+        from . import prompt_parser
+
+        encode = (prompt_parser.encode_prompt_long if mode == "long"
+                  else prompt_parser.encode_prompt_a1111)
+        return encode(clip_params, clip_cfg, tokenizer, prompts,
+                      negative_prompts, clip_skip=clip_skip,
+                      num_images_per_prompt=num_images_per_prompt,
+                      device=device)
     if len(negative_prompts) == 1 and len(prompts) > 1:
         negative_prompts = negative_prompts * len(prompts)
     n_pos = clip_cfg.max_position_embeddings

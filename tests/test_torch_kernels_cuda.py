@@ -151,12 +151,16 @@ def test_bf16_strided_operands(dev, kern, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kern", ["K1", "K2"])
-@pytest.mark.parametrize("d,s", [(40, 77), (40, 130), (80, 5), (160, 154)])
+@pytest.mark.parametrize("d,s", [(40, 77), (40, 130), (80, 5), (160, 154),
+                                 (40, 152), (80, 227), (160, 152),
+                                 (160, 227)])
 def test_bf16_nan_past_the_operands_stays_out(dev, kern, d, s):
     """Q, K and V as views of buffers that hold NaN just past row L or S and
     in the 8 columns past D (D = 40 pads QK^T's depth to 48 there): the
     kernel zero-fills what it copies beyond the operands, so the output is
-    finite and matches the plain version."""
+    finite and matches the plain version. S = 152 and 227 are the id counts
+    of long-mode prompts of 2 and 3 chunks (75 n + 2): ragged in the last
+    key tile."""
     b, l, h = 2, 100, 3
 
     def poisoned(rows, n_valid, seed):
@@ -282,6 +286,7 @@ def test_wrappers_count_and_refuse(dev):
     k1.region_softmax_attention(q, k, v, w)
     k1.region_softmax_attention_kernel(q, k, v, w)
     assert k1.region_softmax_attention.launches == k1_before + 2
+    assert k1.region_softmax_attention.shapes[(64, 64, 40)] >= 2
     # refused operands launch nothing and count nothing
     with pytest.raises(ValueError):  # no kernel instance for D = 24
         k2.flash_attention_nlhd(*(t[..., :24] for t in (q, k, v)))

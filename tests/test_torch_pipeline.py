@@ -12,6 +12,8 @@ upscale and img2img at 128x128, with the hires pass's noise patched to the
 same numpy draw on both sides.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -290,21 +292,38 @@ def test_seed_list_is_batch_invariant():
 
 
 def test_unported_paths_raise(params):
+    """What is still unported raises (extras, hires['rebuild_extras']); the
+    prompt modes, samplers, hires overrides and history that raised before
+    the solver slice now run."""
     _, tp = params
     pipe = StableDiffusionTorch(tcfg.tiny_config(), tp,
                                 tokenizer=ttok.HashTokenizer(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        pipe.encode_prompt([PROMPT], [NEG], mode="a1111")
+    ctx_a, ids_a = pipe.encode_prompt([PROMPT], [NEG], mode="a1111")
+    assert ctx_a.shape == (2, 77, 64) and len(ids_a[0]) == 77
     ctx, _ = pipe.encode_prompt([PROMPT], [NEG])
-    gen = tcfg.GenerationConfig(height=32, width=32, num_inference_steps=2)
-    with pytest.raises(NotImplementedError):
-        pipe.txt2img(ctx, gen, hires={"scale": 2.0}, return_history=True)
-    with pytest.raises(NotImplementedError):
-        pipe.txt2img(ctx, gen, hires={"scale": 2.0, "sampler": "euler"})
+    gen = tcfg.GenerationConfig(height=64, width=64, num_inference_steps=2,
+                                dtype=torch.float32)
     with pytest.raises(NotImplementedError):
         pipe.txt2img(ctx, gen, hires={"rebuild_extras": lambda g: None})
     with pytest.raises(NotImplementedError):
-        pipe.txt2img(ctx, tcfg.GenerationConfig(sampler="euler"))
+        pipe.txt2img(ctx, gen, extras=object())
+    with pytest.raises(KeyError):
+        pipe.txt2img(ctx, tcfg.GenerationConfig(sampler="no_such_solver"))
+    img, (base, hr) = pipe.txt2img(
+        ctx, gen, return_history=True,
+        hires={"scale": 1.0, "steps": 2, "strength": 0.5,
+               "sampler": "euler", "schedule": "exponential"})
+    assert img.shape == (1, 64, 64, 3) and torch.isfinite(img).all()
+    assert base.shape == (2, 1, 8, 8, 4) and hr.shape == (1, 1, 8, 8, 4)
+    x = pipe.txt2img(ctx, dataclasses.replace(gen, sampler="euler"),
+                     decode=False)
+    assert x.shape == (1, 8, 8, 4) and torch.isfinite(x).all()
+    long_text = PROMPT + ", " + " ".join(f"w{i}" for i in range(80))
+    ctx_l, ids_l = pipe.encode_prompt([long_text], [NEG], mode="long")
+    assert ctx_l.shape[1] == 154 and len(ids_l[0]) == 152
+    rb = pipe.encode_region([_two_masks(64, 64)], ids_l, 64, 64)
+    with pytest.raises(ValueError):  # the JAX package fails here too
+        pipe.txt2img(ctx_l, gen, region_biases=rb)
 
 
 def test_pipeline_takes_only_kernel_attention(params):
