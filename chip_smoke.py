@@ -13,10 +13,12 @@ result line:
    of two to four prompt chunks (K1 at 154, 231 and 308, K2 at 154 and
    231) and the id counts of long-mode prompts of two and three chunks
    (152, 227);
+   K1 and K2 at SD2.1's 512^2 shapes (D = 64 with 5, 10 and 20 heads);
    K2 at the two shapes where the JAX package streams (K3: the level-0
    self-attention at 1024^2, L = 16384, and at 1920x1088, L = 32640); K4
    and K5 (the fused GroupNorm+SiLU+conv3x3) at every resnet-conv shape of
-   the UNet and the VAE decoder at 512^2 and 1024^2, with the RMS-relative
+   the UNet and the VAE decoder at 512^2 and 1024^2 and of the VAE encoder
+   at 512^2 (img2img and inpaint), with the RMS-relative
    error beside the elementwise one and, where the C_in chunks are split
    over several blocks, two launches held bitwise equal. Each with its time
    beside the plain version's, the least time the card could take (bound;
@@ -33,10 +35,16 @@ result line:
    a hires request (64^2 -> 128^2, 4 + 2 steps) and one with another
    sampler for the hires pass; every solver of the app's sampler table
    (the non-Karras schedules among them); prompts of two chunks in the
-   "a1111" mode (with a map) and the "long" mode; and a chunked run paused
-   and resumed, bitwise equal on the card to the plain run. Launches are
-   exact: 16 of K1 and K2 per UNet call, the calls counted at the
-   denoiser;
+   "a1111" mode (with a map) and the "long" mode; a chunked run paused
+   and resumed, bitwise equal on the card to the plain run; a txt2img
+   request with ``conv_impl="xla_bf16"``; and the images-in requests:
+   ``encode_image`` then ``img2img`` (plain convs, and K5 through the
+   encoder), inpaint on the 4-channel UNet (strength 1.0 and 0.75), on a
+   9-channel UNet and with an asymmetric VAE, and an SD2.1-style model
+   (gelu CLIP, linear projections, v-prediction). The card's uint8
+   conversion must equal the JAX package's codec rounding bit for bit.
+   Launches are exact: 16 of K1 and K2 per UNet call, the calls counted at
+   the denoiser;
 4. main: SD1.5 at full width (random bf16 weights from a seed), the request
    ``bench.py`` times: 512^2, 25 DPM++ 2M steps on Karras sigmas, CFG 7.5,
    a two-phrase region map, VAE decode to uint8. It serves spatial requests
@@ -46,10 +54,16 @@ result line:
    plain convs, then K4), and two requests of the app's own modes: an
    "a1111" prompt of two chunks with the map and "DPM++ 2M SDE Karras"
    (K1 at S = 154), and the same prompt in "long" mode without a map on
-   "Heun" (K2's cross-attention at S = 154, two UNet calls a step); it
-   checks every image, the UNet calls and the kernels' exact launch
-   counts, prints the p50 seconds per image of each request type after one
-   warm-up, and profiles one request of some types.
+   "Heun" (K2's cross-attention at S = 154, two UNet calls a step); then
+   the images-in requests on a synthetic 512^2 image: img2img from pixels
+   (strength 0.8) and inpaint of its right half (4-channel blend), the
+   same inpaint on ``sd15_inpaint_config()`` (9-channel UNet) and on
+   ``sd15_asym_inpaint_config()`` (that UNet with the asymmetric VAE),
+   and txt2img on ``sd21_config()``, each model's weights freed before the
+   next loads. It checks every image, the UNet calls and the kernels'
+   exact launch counts, prints the p50 seconds per image of each request
+   type after one warm-up, and profiles one request of most types by its
+   kernels (the spatial request also with the host's ops).
 
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.
@@ -85,6 +99,11 @@ LEVELS = ((4096, 40, 5), (1024, 80, 5), (256, 160, 5), (64, 160, 1))
 BATCH, HEADS, TEXT = 2, 8, 77
 STEPS = 25
 PER_UNET = sum(n for _, _, n in LEVELS)  # 16 transformers
+# SD2.1 (sd21_config) at 512^2: (L, heads, transformers a UNet call) at each
+# level, all at D = 64 (channels / 64 heads), S = 77 on a 1024-wide context.
+LEVELS_SD21 = ((4096, 5, 5), (1024, 10, 5), (256, 20, 5), (64, 20, 1))
+D_SD21 = 64
+L_SD21_768 = 9216  # level 0 of sd21_config(True) at its 768^2 (checks only)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory and the rate of
 # the operand type (bf16 on the tensor cores, fp32 on the CUDA cores).
@@ -116,6 +135,7 @@ LONG_PROMPT = (
 # above.
 K3_SHAPES = ((16384, 40), (32640, 40))
 HIRES = 1024
+NEW_SEEDS = [0, 1, 2, 3, 4]  # the images-in and SD2.1 requests: a warm-up
 
 _PALLAS = "diffusionspatialcontrol_tpu/ops/pallas/"
 REPLACES = {
@@ -185,9 +205,11 @@ class ColdTimer:
         return float(np.median(times))
 
 
-def resnet_conv_shapes(cfg, height: int, width: int, batch: int = 1):
-    """Every fused conv of one UNet call (the CFG pair: 2 * batch) and one
-    VAE decode (batch), in call order, as (where, B, H, W, C_in, C_out,
+def resnet_conv_shapes(cfg, height: int, width: int, batch: int = 1,
+                       encoder: bool = False):
+    """Every fused conv of one UNet call (the CFG pair: 2 * batch), one VAE
+    decode (batch) and, with ``encoder``, one VAE encode of a height x
+    width image (batch), in call order, as (where, B, H, W, C_in, C_out,
     temb, skip): conv1 of a resnet takes the time projection (UNet only),
     conv2 the shortcut. Derived from the configs alone, with the UNet's skip
     stack simulated; tests/test_torch_conv_fused.py holds it to the calls
@@ -222,16 +244,29 @@ def resnet_conv_shapes(cfg, height: int, width: int, batch: int = 1):
             c = c_out
 
     v = cfg.vae
+    dchans = v.decoder_block_out_channels or v.block_out_channels
+    d_layers = v.decoder_layers_per_block or v.layers_per_block
     size = (height // 8, width // 8)
-    c = v.block_out_channels[-1]
+    c = dchans[-1]
     resnet("vae", batch, size, c, c)
     resnet("vae", batch, size, c, c)
-    for lv, c_out in enumerate(reversed(v.block_out_channels)):
-        for _ in range(v.layers_per_block + 1):
+    for lv, c_out in enumerate(reversed(dchans)):
+        for _ in range(d_layers + 1):
             resnet("vae", batch, size, c, c_out)
             c = c_out
-        if lv < len(v.block_out_channels) - 1:
+        if lv < len(dchans) - 1:
             size = (2 * size[0], 2 * size[1])
+    if encoder:
+        size, c = (height, width), v.block_out_channels[0]
+        for lv, c_out in enumerate(v.block_out_channels):
+            for _ in range(v.layers_per_block):
+                resnet("vae_enc", batch, size, c, c_out)
+                c = c_out
+            if lv < len(v.block_out_channels) - 1:
+                # (0, 1)-padded, VALID stride-2 downsample
+                size = ((size[0] - 2) // 2 + 1, (size[1] - 2) // 2 + 1)
+        resnet("vae_enc", batch, size, c, c)
+        resnet("vae_enc", batch, size, c, c)
     return out
 
 
@@ -323,7 +358,7 @@ def phase_kernels(ctx):
     g = torch.Generator(device=dev).manual_seed(0)
     timer = ColdTimer(dev)
     rows = {"K1": [], "K1 chunked": [], "K2": [], "K2 cross": [],
-            "K2 chunked": []}
+            "K2 chunked": [], "K1 sd21": [], "K2 sd21": []}
     errs = {"K1": [0.0, 0.0], "K2": [0.0, 0.0]}  # [fp32, bf16]
 
     def sdpa(q, k, v, mask=None):
@@ -333,18 +368,22 @@ def phase_kernels(ctx):
 
     cases = []
     for l, d, n in LEVELS:
-        cases.append(("K2", l, l, d, n))          # self-attention
-        cases.append(("K2 cross", l, TEXT, d, n))  # cross-attention, vanilla
-        cases.append(("K1", l, TEXT, d, n))       # cross-attention, spatial
+        cases.append(("K2", l, l, d, n, HEADS))          # self-attention
+        cases.append(("K2 cross", l, TEXT, d, n, HEADS))  # cross, vanilla
+        cases.append(("K1", l, TEXT, d, n, HEADS))       # cross, spatial
     for l, d, _ in LEVELS:  # longer prompts: 0 launches a 77-token request
-        cases += [("K1 chunked", l, s, d, 0)
+        cases += [("K1 chunked", l, s, d, 0, HEADS)
                   for s in sorted(CHUNKED_TEXT + LONG_IDS)]
-        cases += [("K2 chunked", l, s, d, 0)
+        cases += [("K2 chunked", l, s, d, 0, HEADS)
                   for s in sorted(CHUNKED_TEXT[:2] + LONG_IDS)]
-    for name, l, s, d, n in cases:
+    for l, heads, n in LEVELS_SD21 + ((L_SD21_768, 5, 0),):
+        # sd21_spatial: self and spatial cross; the v model's 768^2 level 0
+        cases.append(("K2 sd21", l, l, D_SD21, n, heads))
+        cases.append(("K1 sd21", l, TEXT, D_SD21, n, heads))
+    for name, l, s, d, n, heads in cases:
         kern = name[:2]
-        tag = f"{name} L={l} S={s} D={d}"
-        q, k, v = _qkv(g, BATCH, l, s, HEADS, d, torch.float32, dev)
+        tag = f"{name} L={l} S={s} H={heads} D={d}"
+        q, k, v = _qkv(g, BATCH, l, s, heads, d, torch.float32, dev)
         w = torch.randn(BATCH, l, s, generator=g, device=dev)
         if kern == "K1":
             def run(q, k, v):
@@ -377,10 +416,11 @@ def phase_kernels(ctx):
         ms = timer(lambda: run(qb, kb, vb))
         plain_ms = timer(lambda: plain(qb, kb, vb), reps=5)
         lib_ms = timer(lambda: sdpa(qb, kb, vb, mask))
-        b_ms, t_bytes, t_ops = bound(BATCH, HEADS, l, s, d, torch.bfloat16,
+        b_ms, t_bytes, t_ops = bound(BATCH, heads, l, s, d, torch.bfloat16,
                                      kern == "K1")
         rows[name].append({
-            "L": l, "S": s, "D": d, "per_unet_call": n, "ms": ms,
+            "model": "sd21" if "sd21" in name else "sd15",
+            "L": l, "S": s, "H": heads, "D": d, "per_unet_call": n, "ms": ms,
             "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes_ms": 1e3 * t_bytes, "operations_ms": 1e3 * t_ops,
@@ -388,7 +428,7 @@ def phase_kernels(ctx):
         log(f"kernels: {tag}: fp32 err {e32:.2e}, bf16 err {e16:.2e}; "
             f"bf16 {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
             f"ms, bound {b_ms:.4f} ms ({rows[name][-1]['bound_by']}), exps "
-            f"{exp_ms(BATCH, HEADS, l, s):.4f} ms")
+            f"{exp_ms(BATCH, heads, l, s):.4f} ms")
         if name == "K2":
             log_option_times(tag, timer, qb, kb, vb)
         del q, k, v, qb, kb, vb, q16, k16, v16, w, out, want
@@ -414,9 +454,9 @@ def phase_kernels(ctx):
                            else "operations")
         return tot
 
-    for kern in ("K1", "K2"):
+    for kern in ("K1", "K2", "K1 sd21", "K2 sd21"):
         tot = summary(rows[kern])
-        exps = sum(exp_ms(BATCH, HEADS, r["L"], r["S"]) * r["per_unet_call"]
+        exps = sum(exp_ms(BATCH, r["H"], r["L"], r["S"]) * r["per_unet_call"]
                    for r in rows[kern])
         log(f"kernels: {kern}, the {PER_UNET} launches of one UNet call: "
             f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, sdpa "
@@ -434,9 +474,10 @@ def phase_kernels(ctx):
                 f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
     ctx["kernels"] = {
         "K1": dict(summary(rows["K1"]), err=errs["K1"],
-                   shapes=rows["K1"] + rows["K1 chunked"]),
+                   shapes=rows["K1"] + rows["K1 chunked"] + rows["K1 sd21"]),
         "K2": dict(summary(rows["K2"]), err=errs["K2"],
-                   shapes=rows["K2"] + rows["K2 cross"] + rows["K2 chunked"]),
+                   shapes=rows["K2"] + rows["K2 cross"] + rows["K2 chunked"]
+                   + rows["K2 sd21"]),
         "K3": k3_checks(dev, g, timer, sdpa),
     }
     ctx["kernels"].update(conv_checks(dev, g, timer))
@@ -504,8 +545,9 @@ def conv_bound(b, h, w, c_in, c_out, temb, skip):
 def conv_checks(dev, g, timer):
     """K4 and K5 through their wrappers against ``gn_silu_conv3x3_plain`` at
     every distinct resnet-conv shape of SD1.5's UNet (CFG pair) and VAE
-    decoder at 512^2 and 1024^2, with the GroupNorm folded from random
-    statistics as the resnets fold it.
+    decoder at 512^2 and 1024^2 and of its VAE encoder at 512^2 (img2img
+    and inpaint), with the GroupNorm folded from random statistics as the
+    resnets fold it.
 
     Tolerances: fp32 5e-5 absolute (tests/test_conv_fused.py; sums of up to
     9 * 2560 terms in another order). bf16: rtol 1e-2 and atol 5% of the
@@ -531,9 +573,9 @@ def conv_checks(dev, g, timer):
 
     cfg = sd15_config()
     per_call = {}  # shape -> launches in one 512^2 UNet call / one decode
-    shapes = []
+    shapes = []  # / one encode
     for size in (512, HIRES):
-        for sh in resnet_conv_shapes(cfg, size, size):
+        for sh in resnet_conv_shapes(cfg, size, size, encoder=size == 512):
             if size == 512:
                 per_call[sh] = per_call.get(sh, 0) + 1
             if sh not in shapes:
@@ -630,7 +672,7 @@ def conv_checks(dev, g, timer):
     # split by the Pallas body the JAX package would run there (K4a/K4b).
     for size in (512, HIRES):
         groups = {}
-        for sh in resnet_conv_shapes(cfg, size, size):
+        for sh in resnet_conv_shapes(cfg, size, size, encoder=size == 512):
             key = (sh[0], "K4b" if jax_sends_to_k4b(sh[2], sh[3]) else "K4a")
             groups.setdefault(key, []).append(shapes.index(sh))
         for (where, body), idx in groups.items():
@@ -647,7 +689,7 @@ def conv_checks(dev, g, timer):
     # Sums by map size over the launches of one 512^2 UNet call and one
     # 512^2 decode (PERF.md's per-map table).
     by_map = {}
-    for sh in resnet_conv_shapes(cfg, 512, 512):
+    for sh in resnet_conv_shapes(cfg, 512, 512, encoder=True):
         by_map.setdefault((sh[0], sh[2], sh[3]), []).append(shapes.index(sh))
     for (where, h, w), idx in by_map.items():
         tot = {f: [sum(rows[n][i][f] for i in idx) for n in kernels]
@@ -763,10 +805,11 @@ def _reset_counts():
 
 
 def want_launches(cfg, size, calls, spatial, conv_impl, hires_calls=0,
-                  text_s=TEXT):
-    """The exact launches of one request: ``calls`` UNet calls at ``size``,
-    then ``hires_calls`` at twice the size, one decode at the last size, on
-    a context of ``text_s`` positions."""
+                  text_s=TEXT, encodes=0):
+    """The exact launches of one request: ``encodes`` VAE encodes of a
+    ``size`` image, ``calls`` UNet calls at ``size``, then ``hires_calls``
+    at twice the size, one decode at the last size, on a context of
+    ``text_s`` positions."""
     runs = [(size, calls)] + ([(2 * size, hires_calls)] if hires_calls
                               else [])
     n = calls + hires_calls
@@ -779,13 +822,16 @@ def want_launches(cfg, size, calls, spatial, conv_impl, hires_calls=0,
             f"K1 S={CHUNKED}": 0, f"K2 S={CHUNKED}": 0}
     if text_s == CHUNKED:
         want[f"K{1 if spatial else 2} S={CHUNKED}"] = PER_UNET * n
-    if conv_impl != "xla":
+    if conv_impl in ("pallas", "pallas2"):
         fused = [sh for sz, k in runs
                  for sh in resnet_conv_shapes(cfg, sz, sz) * k
                  if sh[0] == "unet"]
         last = runs[-1][0]
         fused += [sh for sh in resnet_conv_shapes(cfg, last, last)
                   if sh[0] == "vae"]
+        fused += [sh for sh in resnet_conv_shapes(cfg, size, size,
+                                                  encoder=True) * encodes
+                  if sh[0] == "vae_enc"]
         want["K4" if conv_impl == "pallas" else "K5"] = len(fused)
         if conv_impl == "pallas":
             want["K4b"] = sum(jax_sends_to_k4b(sh[2], sh[3]) for sh in fused)
@@ -794,6 +840,54 @@ def want_launches(cfg, size, calls, spatial, conv_impl, hires_calls=0,
 
 def _delta(after, before):
     return {k: after[k] - before[k] for k in after}
+
+
+def synthetic_image(side: int, seed: int) -> np.ndarray:
+    """A deterministic (1, side, side, 3) fp32 image in [-1, 1] made with
+    numpy from ``seed``: smooth colour waves under a few flat discs."""
+    rng = np.random.default_rng(seed)
+    y, x = (np.mgrid[0:side, 0:side] + 0.5) / side
+    img = np.stack([0.6 * np.sin(2 * np.pi * (rng.uniform(0.5, 2.0) * x
+                                              + rng.uniform(0.5, 2.0) * y
+                                              + rng.uniform()))
+                    for _ in range(3)], axis=-1)
+    for _ in range(4):
+        cx, cy = rng.uniform(0.2, 0.8, 2)
+        img[(x - cx) ** 2 + (y - cy) ** 2 < rng.uniform(0.05, 0.2) ** 2] = \
+            rng.uniform(-1.0, 1.0, 3)
+    return img[None].astype(np.float32)
+
+
+def right_half_mask(side: int, extra: bool = False) -> np.ndarray:
+    """(1, side, side) fp32, 1 (regenerate) on the right half; ``extra``
+    adds a rectangle that does not sit on the 8-pixel latent grid."""
+    m = np.zeros((1, side, side), np.float32)
+    m[:, :, side // 2:] = 1.0
+    if extra:
+        m[:, side // 12: side // 4 + 1, side // 20: side // 5 + 1] = 1.0
+    return m
+
+
+def u8_reference(x: np.ndarray) -> np.ndarray:
+    """The JAX package's uint8 conversion (``runtime/native.py``'s fallback,
+    the native codec's formula): clamp(x 0.5 + 0.5, 0, 1) 255 + 0.5 in
+    fp32, truncated; tests/test_torch_inpaint.py holds the port's
+    ``to_uint8`` to the codec itself on the CPU."""
+    f = np.float32
+    v = np.clip(np.asarray(x, f) * f(0.5) + f(0.5), f(0), f(1)) * f(255)
+    return (v + f(0.5)).astype(np.uint8)
+
+
+def u8_boundary_inputs() -> np.ndarray:
+    """The two inputs that showed ties rounding the other way, then every
+    fp32 value within 64 ulp of the 255 boundaries between the buckets."""
+    b = (((np.arange(255) + 0.5) / 255.0) * 2.0 - 1.0).astype(np.float32)
+    up, down, cols = b, b, [b]
+    for _ in range(64):
+        up = np.nextafter(up, np.float32(np.inf))
+        down = np.nextafter(down, np.float32(-np.inf))
+        cols += [up, down]
+    return np.concatenate([np.float32([-0.49411765, -0.99607843])] + cols)
 
 
 def _gen_for(name, **kw):
@@ -815,6 +909,8 @@ def _tiny_cases():
             ("spatial pallas", "pallas", True, None, "DPM++ 2M Karras",
              "short", False),
             ("spatial pallas2", "pallas2", True, None, "DPM++ 2M Karras",
+             "short", False),
+            ("spatial xla_bf16", "xla_bf16", True, None, "DPM++ 2M Karras",
              "short", False),
             ("hires", "xla", True, {}, "DPM++ 2M Karras", "short", False),
             ("hires, Euler a Exponential pass", "xla", True,
@@ -947,6 +1043,136 @@ def phase_tiny(ctx):
             f"{c.shape[1]}): card vs CPU max abs err {err:.2e} (fp32), "
             f"{u8_err} (uint8); {calls['cuda']} UNet calls, launches "
             f"{ {k: v for k, v in want.items() if v} }")
+    tiny_images_in(ctx, cfg, on)
+
+
+def _tiny_variants(cfg):
+    """The tiny config's 9-channel inpaint UNet, that UNet with an
+    asymmetric VAE (decoder 1.5x as wide, three resnets a block, as
+    ``sd15_asym_inpaint_config(1.5)``), and an SD2.1-style model (gelu
+    CLIP, linear projections, a constant head width, v-prediction)."""
+    import dataclasses
+
+    nine = dataclasses.replace(
+        cfg, unet=dataclasses.replace(cfg.unet, in_channels=9))
+    v = nine.vae
+    asym = dataclasses.replace(nine, vae=dataclasses.replace(
+        v, asymmetric=True,
+        decoder_block_out_channels=tuple(int(c * 1.5)
+                                         for c in v.block_out_channels),
+        decoder_layers_per_block=v.layers_per_block + 1))
+    sd21 = dataclasses.replace(
+        cfg, clip=dataclasses.replace(cfg.clip, hidden_act="gelu"),
+        unet=dataclasses.replace(cfg.unet, num_attention_heads=(1, 2, 4, 4),
+                                 use_linear_projection=True),
+        prediction_type="v_prediction")
+    return nine, asym, sd21
+
+
+def tiny_images_in(ctx, cfg, on):
+    """The images-in requests at tiny size, fp32, card against CPU with the
+    same weights, image, mask and seeds (so the same draws: every sample's
+    generator draws on the CPU): ``encode_image`` then ``img2img`` at
+    strength 0.75, with plain convs and with K5 (its fp32 body) through the
+    encoder's resnets; inpaint on the 4-channel UNet at strength 1.0 and
+    0.75, on the 9-channel UNet and with the asymmetric VAE; the
+    SD2.1-style model's txt2img with ``guidance_rescale`` 0.7; one under
+    ``conv_impl="xla_bf16"``. All with the two-phrase map, 4 steps. The
+    card's uint8 of each image must equal ``u8_reference`` of its fp32
+    pixels bit for bit, as must the card's uint8 of the rounding boundary
+    set. Tolerances as in ``phase_tiny``."""
+    from diffusionspatialcontrol_tpu_torch import GenerationConfig
+    from diffusionspatialcontrol_tpu_torch.models.factory import (
+        init_pipeline_params,
+    )
+    from diffusionspatialcontrol_tpu_torch.models.vae import vae_init
+    from diffusionspatialcontrol_tpu_torch.pipeline.pipeline import (
+        StableDiffusionTorch,
+        to_uint8,
+    )
+    from diffusionspatialcontrol_tpu_torch.text.tokenizer import HashTokenizer
+
+    dev = ctx["device"]
+    x = u8_boundary_inputs()
+    got = to_uint8(torch.from_numpy(x).to(dev)).cpu().numpy()
+    if not np.array_equal(got, u8_reference(x)) or got[:2].tolist() != [65,
+                                                                       1]:
+        raise AssertionError("tiny: uint8 on the card differs from the "
+                             "codec's rounding on the boundary set")
+    log(f"tiny: uint8 on the card equals the codec's rounding on "
+        f"{x.size} boundary inputs")
+
+    nine, asym, sd21 = _tiny_variants(cfg)
+    cpu = torch.device("cpu")
+    p9 = init_pipeline_params(1, nine, torch.float32, device=cpu)
+    pa = dict(p9, vae=vae_init(torch.Generator().manual_seed(2), asym.vae,
+                               torch.float32, cpu))
+    pv = init_pipeline_params(3, sd21, torch.float32, device=cpu)
+    weights = {"four": (cfg, on)}
+    for name, c_, p in (("nine", nine, p9), ("asym", asym, pa),
+                        ("sd21", sd21, pv)):
+        weights[name] = (c_, {"cpu": p, "cuda": _tree_to(p, dev)})
+    img = torch.from_numpy(synthetic_image(64, 0))
+    mask = torch.from_numpy(right_half_mask(64, extra=True))
+    cases = (  # (label, weights, conv_impl, request, strength)
+        ("img2img from pixels", "four", "xla", "img2img", 0.75),
+        ("img2img from pixels, pallas2", "four", "pallas2", "img2img", 0.75),
+        ("inpaint 4-channel", "four", "xla", "inpaint", 1.0),
+        ("inpaint 4-channel", "four", "xla", "inpaint", 0.75),
+        ("inpaint 4-channel, xla_bf16", "four", "xla_bf16", "inpaint", 0.75),
+        ("inpaint 9-channel", "nine", "xla", "inpaint", 1.0),
+        ("inpaint asymmetric VAE", "asym", "xla", "inpaint", 1.0),
+        ("SD2.1-style v-prediction", "sd21", "xla", "txt2img", 1.0))
+    for label, which, conv_impl, request, strength in cases:
+        cfg_, params = weights[which]
+        gen = GenerationConfig(height=64, width=64, num_inference_steps=4,
+                               guidance_rescale=0.7 if which == "sd21"
+                               else 0.0, dtype=torch.float32)
+        out, calls = {}, {}
+        for kind in ("cpu", "cuda"):
+            pipe = StableDiffusionTorch(cfg_, params[kind],
+                                        tokenizer=HashTokenizer(),
+                                        conv_impl=conv_impl, device=kind)
+            c, ids = pipe.encode_prompt([PROMPT], [NEG])
+            rb = pipe.encode_region([_masks(64, 64)], ids, 64, 64)
+            before = _counts()
+            with UNetCalls() as n:
+                if request == "img2img":
+                    lat = pipe.encode_image(img, seed=3)
+                    res = pipe.img2img(c, lat, gen, strength=strength,
+                                       seed=3, region_biases=rb)
+                elif request == "inpaint":
+                    res = pipe.inpaint(c, img, mask, gen, strength=strength,
+                                       seed=3, region_biases=rb)
+                else:
+                    res = pipe.txt2img(c, gen, seed=3, region_biases=rb)
+            got = _delta(_counts(), before)
+            calls[kind] = n.n
+            want = (want_launches(cfg_, 64, n.n, True, conv_impl,
+                                  encodes=int(request != "txt2img"))
+                    if kind == "cuda" else dict.fromkeys(got, 0))
+            if got != want:
+                raise AssertionError(f"tiny {label} on {kind}: launches "
+                                     f"{got}, expected {want}")
+            out[kind] = res
+        if calls["cpu"] != calls["cuda"] or calls["cuda"] != int(
+                4 * strength):
+            raise AssertionError(f"tiny {label}: UNet calls {calls}")
+        if out["cuda"].shape != (1, 64, 64, 3):
+            raise AssertionError(f"tiny {label}: image {out['cuda'].shape}")
+        err = check_close(f"tiny {label}", out["cuda"].cpu(), out["cpu"],
+                          0.0, 2e-4)
+        u8 = to_uint8(out["cuda"]).cpu()
+        if not np.array_equal(u8.numpy(), u8_reference(out["cuda"].cpu())):
+            raise AssertionError(f"tiny {label}: the card's uint8 differs "
+                                 f"from the codec's rounding")
+        u8_err = int((u8.int() - to_uint8(out["cpu"]).int()).abs().max())
+        if u8_err > 1:
+            raise AssertionError(f"tiny {label}: uint8 differs by {u8_err}")
+        log(f"tiny: {label} ({conv_impl}, strength {strength}): card vs CPU "
+            f"max abs err {err:.2e} (fp32), {u8_err} (uint8); "
+            f"{calls['cuda']} UNet calls, launches "
+            f"{ {k: v for k, v in want.items() if v} }")
 
 
 def phase_main(ctx):
@@ -1015,60 +1241,34 @@ def phase_main(ctx):
         ("vanilla_long_heun", "xla", gen_heun, cl, None, None, heun_calls, 0,
          [0, 1, 2, 3]),
     )
-    _reset_counts()
-    p50, seconds = {}, {}
+    ctx.update(launches={}, p50={}, seconds={})
     for (kind, conv_impl, gen_, ctx_, rb, opts, calls, hr_calls,
          seeds) in requests:
-        t_kind = time.perf_counter()
-        side = HIRES if opts else 512
-        want = want_launches(cfg, 512, calls, rb is not None, conv_impl,
-                             hr_calls, text_s=ctx_.shape[1])
-        per_image = []
-        for i, seed in enumerate(seeds):
-            batch = len(seed) if isinstance(seed, list) else 1
-            before = _counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with UNetCalls() as n:
-                img = pipes[conv_impl].txt2img(ctx_, gen_, seed=seed,
-                                               region_biases=rb, hires=opts)
-                u8 = pipe.to_uint8(img).cpu()
-            dt = time.perf_counter() - t0
-            launches = _delta(_counts(), before)
-            if n.n != calls + hr_calls:
-                raise AssertionError(f"main {kind} seed {seed}: {n.n} UNet "
-                                     f"calls, expected {calls + hr_calls}")
-            if launches != want:
-                raise AssertionError(f"main {kind} seed {seed}: launches "
-                                     f"{launches}, expected {want}")
-            if tuple(img.shape) != (batch, side, side, 3) or \
-                    img.dtype != torch.float32:
-                raise AssertionError(f"main {kind}: image {tuple(img.shape)} "
-                                     f"{img.dtype}")
-            if not bool(torch.isfinite(img).all()):
-                raise AssertionError(f"main {kind} seed {seed}: non-finite "
-                                     f"image")
-            if tuple(u8.shape) != (batch, side, side, 3) or \
-                    u8.dtype != torch.uint8:
-                raise AssertionError(f"main {kind}: uint8 {tuple(u8.shape)}")
-            log(f"main: {kind} seed {seed}: {dt:.3f} s "
-                f"({'warm-up' if i == 0 else f'{dt / batch:.3f} s/image'}), "
-                f"{n.n} UNet calls, launches "
-                f"{ {k: v for k, v in launches.items() if v} }, image mean "
-                f"{float(img.mean()):+.4f} std {float(img.std()):.4f}")
-            if i:
-                per_image.append(dt / batch)
-        p50[kind] = float(np.median(per_image))
-        seconds[kind] = time.perf_counter() - t_kind
-    ctx["launches"] = _counts()
-    ctx["p50"] = p50
-    log("main: p50 s/image after one warm-up: " + ", ".join(
-        f"{k} {v:.4f}" for k, v in p50.items())
-        + f"; launches {ctx['launches']} (card: {card_line()})")
-    log("main: seconds by request type: " + ", ".join(
-        f"{k} {v:.1f}" for k, v in seconds.items()))
-    if min(ctx["launches"].values()) == 0:
-        raise AssertionError("main: a kernel of the path never launched")
+        def run(seed, p=pipes[conv_impl], gen_=gen_, ctx_=ctx_, rb=rb,
+                opts=opts):
+            return p.txt2img(ctx_, gen_, seed=seed, region_biases=rb,
+                             hires=opts)
+
+        serve(ctx, kind, run, seeds, calls + hr_calls,
+              want_launches(cfg, 512, calls, rb is not None, conv_impl,
+                            hr_calls, text_s=ctx_.shape[1]),
+              HIRES if opts else 512)
+    # img2img from pixels and inpaint on SD1.5 (4-channel UNet): a
+    # synthetic init image, app defaults (img2img strength 0.8)
+    init = torch.from_numpy(synthetic_image(512, 0)).to(pipe.device)
+    mask = torch.from_numpy(right_half_mask(512)).to(pipe.device)
+    i2i_calls = int(STEPS * 0.8)
+    serve(ctx, "img2img_spatial",
+          lambda seed: pipe.img2img(c1, pipe.encode_image(init, seed=seed),
+                                    gen, strength=0.8, seed=seed,
+                                    region_biases=rb1),
+          NEW_SEEDS, i2i_calls,
+          want_launches(cfg, 512, i2i_calls, True, "xla", encodes=1), 512)
+    serve(ctx, "inpaint_spatial",
+          lambda seed: pipe.inpaint(c1, init, mask, gen, strength=1.0,
+                                    seed=seed, region_biases=rb1),
+          NEW_SEEDS, STEPS,
+          want_launches(cfg, 512, STEPS, True, "xla", encodes=1), 512)
     for kind, conv_impl, gen_, ctx_, rb, opts in (
             ("spatial", "xla", gen, c1, rb1, None),
             ("vanilla", "xla", gen, c1, None, None),
@@ -1077,8 +1277,159 @@ def phase_main(ctx):
             ("hires", "xla", gen, c1, rb1, hires),
             ("spatial_a1111", "xla", gen_sde, ca, rba, None),
             ("vanilla_long_heun", "xla", gen_heun, cl, None, None)):
-        profile_request(pipes[conv_impl], ctx_, gen_, rb, kind, p50[kind],
-                        opts)
+        for host_ops in (True, False) if kind == "spatial" else (False,):
+            profile_request(
+                lambda p=pipes[conv_impl], gen_=gen_, ctx_=ctx_, rb=rb,
+                opts=opts: p.txt2img(ctx_, gen_, seed=99, region_biases=rb,
+                                     hires=opts),
+                kind, ctx["p50"][kind], host_ops=host_ops)
+    profile_request(
+        lambda: pipe.img2img(c1, pipe.encode_image(init, seed=99), gen,
+                             strength=0.8, seed=99, region_biases=rb1),
+        "img2img_spatial", ctx["p50"]["img2img_spatial"], host_ops=False)
+    profile_request(
+        lambda: pipe.inpaint(c1, init, mask, gen, strength=1.0, seed=99,
+                             region_biases=rb1),
+        "inpaint_spatial", ctx["p50"]["inpaint_spatial"], host_ops=False)
+    del pipes, pipe, params
+    main_other_models(ctx, gen, state, init, mask)
+
+    log("main: p50 s/image after one warm-up: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in ctx["p50"].items())
+        + f"; launches {ctx['launches']} (card: {card_line()})")
+    log("main: seconds by request type: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in ctx["seconds"].items()))
+    if min(ctx["launches"].values()) == 0:
+        raise AssertionError("main: a kernel of the path never launched")
+
+
+def serve(ctx, kind, run, seeds, calls, want, side):
+    """Serve ``run(seed)`` (fp32 images) once a seed, the first request a
+    warm-up, each followed by the uint8 copy to the host. Checks each
+    request's UNet calls, exact launches and images; records the p50
+    seconds per image of the timed ones. The launch counts are set to 0
+    before the first request and read after the last: ``ctx["launches"]``
+    sums them over the request types, the main path's launches."""
+    from diffusionspatialcontrol_tpu_torch.pipeline.pipeline import to_uint8
+
+    _reset_counts()
+    t_kind = time.perf_counter()
+    per_image = []
+    for i, seed in enumerate(seeds):
+        batch = len(seed) if isinstance(seed, list) else 1
+        before = _counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with UNetCalls() as n:
+            img = run(seed)
+            u8 = to_uint8(img).cpu()
+        dt = time.perf_counter() - t0
+        launches = _delta(_counts(), before)
+        if n.n != calls:
+            raise AssertionError(f"main {kind} seed {seed}: {n.n} UNet "
+                                 f"calls, expected {calls}")
+        if launches != want:
+            raise AssertionError(f"main {kind} seed {seed}: launches "
+                                 f"{launches}, expected {want}")
+        if tuple(img.shape) != (batch, side, side, 3) or \
+                img.dtype != torch.float32:
+            raise AssertionError(f"main {kind}: image {tuple(img.shape)} "
+                                 f"{img.dtype}")
+        if not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"main {kind} seed {seed}: non-finite "
+                                 f"image")
+        if tuple(u8.shape) != (batch, side, side, 3) or \
+                u8.dtype != torch.uint8:
+            raise AssertionError(f"main {kind}: uint8 {tuple(u8.shape)}")
+        if not np.array_equal(u8.numpy(), u8_reference(img.cpu())):
+            raise AssertionError(f"main {kind} seed {seed}: uint8 differs "
+                                 f"from the codec's rounding")
+        log(f"main: {kind} seed {seed}: {dt:.3f} s "
+            f"({'warm-up' if i == 0 else f'{dt / batch:.3f} s/image'}), "
+            f"{n.n} UNet calls, launches "
+            f"{ {k: v for k, v in launches.items() if v} }, image mean "
+            f"{float(img.mean()):+.4f} std {float(img.std()):.4f}")
+        if i:
+            per_image.append(dt / batch)
+    for k, v in _counts().items():
+        ctx["launches"][k] = ctx["launches"].get(k, 0) + v
+    ctx["p50"][kind] = float(np.median(per_image))
+    ctx["seconds"][kind] = time.perf_counter() - t_kind
+
+
+def main_other_models(ctx, gen, state, init, mask):
+    """The requests of the other presets at full width, each model's random
+    bf16 weights (seed 0) freed before the next loads:
+    ``sd15_inpaint_config()`` (9-channel UNet) inpainting the SD1.5
+    requests' init image and mask; the same UNet with the asymmetric VAE
+    of ``sd15_asym_inpaint_config()``; and ``sd21_config()`` (the app's
+    SD2.1 zoo model: OpenCLIP-width gelu text encoder, linear projections,
+    K1/K2 at D = 64 with 5/10/20 heads) serving txt2img with the map. Each
+    profiled once by its kernels. Every one at 512^2, 25 DPM++ 2M Karras
+    steps, CFG 7.5, the two-phrase map."""
+    from diffusionspatialcontrol_tpu_torch import (
+        sd15_asym_inpaint_config,
+        sd15_inpaint_config,
+        sd21_config,
+    )
+    from diffusionspatialcontrol_tpu_torch.models.factory import (
+        init_pipeline_params,
+        param_count,
+    )
+    from diffusionspatialcontrol_tpu_torch.models.vae import vae_init
+    from diffusionspatialcontrol_tpu_torch.pipeline.pipeline import (
+        StableDiffusionTorch,
+    )
+    from diffusionspatialcontrol_tpu_torch.text.tokenizer import load_tokenizer
+
+    def load(cfg, params, what):
+        t0 = time.perf_counter()
+        pipe = StableDiffusionTorch(cfg, params, tokenizer=load_tokenizer())
+        c, ids = pipe.encode_prompt([PROMPT], [NEG], clip_skip=2)
+        rb = pipe.encode_region([state], ids, height=512, width=512)
+        torch.cuda.synchronize()
+        log(f"main: {what}: {param_count(params) / 1e6:.1f} M parameters "
+            f"(bf16, random from seed 0) in {time.perf_counter() - t0:.1f} s")
+        return pipe, c, rb
+
+    def inpaint(pipe, c, rb):
+        return lambda seed: pipe.inpaint(c, init, mask, gen, strength=1.0,
+                                         seed=seed, region_biases=rb)
+
+    cfg9 = sd15_inpaint_config()
+    want = want_launches(cfg9, 512, STEPS, True, "xla", encodes=1)
+    params = init_pipeline_params(0, cfg9, torch.bfloat16)
+    pipe, c, rb = load(cfg9, params, "sd15_inpaint_config")
+    serve(ctx, "inpaint9_spatial", inpaint(pipe, c, rb), NEW_SEEDS, STEPS,
+          want, 512)
+    profile_request(lambda: inpaint(pipe, c, rb)(99), "inpaint9_spatial",
+                    ctx["p50"]["inpaint9_spatial"], host_ops=False)
+    cfga = sd15_asym_inpaint_config()
+    dev = pipe.device
+    del pipe
+    params["vae"] = None  # free the 9-channel model's VAE first
+    params["vae"] = vae_init(torch.Generator(device=dev).manual_seed(0),
+                             cfga.vae, torch.bfloat16, dev)
+    pipe, c, rb = load(cfga, params, "sd15_asym_inpaint_config (the "
+                                     "9-channel UNet, an asymmetric VAE)")
+    serve(ctx, "inpaint_asym", inpaint(pipe, c, rb), NEW_SEEDS, STEPS, want,
+          512)
+    profile_request(lambda: inpaint(pipe, c, rb)(99), "inpaint_asym",
+                    ctx["p50"]["inpaint_asym"], host_ops=False)
+    del pipe, params
+    torch.cuda.empty_cache()
+    cfg21 = sd21_config()
+    params = init_pipeline_params(0, cfg21, torch.bfloat16)
+    pipe, c, rb = load(cfg21, params, "sd21_config")
+    serve(ctx, "sd21_spatial",
+          lambda seed: pipe.txt2img(c, gen, seed=seed, region_biases=rb),
+          NEW_SEEDS, STEPS, want_launches(cfg21, 512, STEPS, True, "xla"),
+          512)
+    profile_request(
+        lambda: pipe.txt2img(c, gen, seed=99, region_biases=rb),
+        "sd21_spatial", ctx["p50"]["sd21_spatial"], host_ops=False)
+    del pipe, params
+    torch.cuda.empty_cache()
 
 
 KERNEL_GROUPS = (  # (group, test on the lower-cased kernel name)
@@ -1094,26 +1445,28 @@ KERNEL_GROUPS = (  # (group, test on the lower-cased kernel name)
 )
 
 
-def profile_request(pipe, context, gen, region_biases, kind, p50_s,
-                    hires=None):
-    """One batch-1 request under torch.profiler: the device's busy time (sum
+def profile_request(run, kind, p50_s, host_ops=True):
+    """One batch-1 request, ``run()`` (fp32 images) and their uint8 copy to
+    the host, under torch.profiler: the device's busy time (sum
     of kernel times) against the request's unprofiled p50 wall time, kernel
     launches, and device time by kernel group and by kernel. The profiler's
     own cost on the host inflates the profiled wall time, so the busy share
-    is taken against the p50. Host ops are recorded too, as in every
-    earlier sitting, so that the busy times stay comparable; the log line
-    gives the seconds the profile took to collect and sum."""
+    is taken against the p50. With ``host_ops`` the host's ops are
+    recorded too; without, the kernels only, which take a third of the
+    time to collect and sum. The spatial request is profiled both ways in
+    each run, to hold the two busy times together (PERF.md). The log line
+    gives the seconds the profile took."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from diffusionspatialcontrol_tpu_torch.pipeline.pipeline import to_uint8
+
     torch.cuda.synchronize()
     t_all = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if host_ops else [])) as prof:
         t0 = time.perf_counter()
-        img = pipe.txt2img(context, gen, seed=99, region_biases=region_biases,
-                           hires=hires)
-        pipe.to_uint8(img).cpu()
+        to_uint8(run()).cpu()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
@@ -1126,7 +1479,8 @@ def profile_request(pipe, context, gen, region_biases, kind, p50_s,
         name = e.key.lower()
         group = next(g for g, test in KERNEL_GROUPS if test(name))
         groups[group] += e.self_device_time_total / 1e3
-    log(f"profile: {kind}: device busy {busy_ms:.1f} ms = "
+    log(f"profile: {kind}{'' if host_ops else ' (kernels only)'}: device "
+        f"busy {busy_ms:.1f} ms = "
         f"{100 * busy_ms / (1e3 * p50_s):.1f}% of the p50 wall "
         f"({1e3 * p50_s:.1f} ms; {wall_ms:.1f} ms profiled), {count} kernel "
         f"launches; by group (ms): " + ", ".join(

@@ -13,7 +13,10 @@ from .config import (  # noqa: F401
     ModelConfig,
     UNetConfig,
     VAEConfig,
+    sd15_asym_inpaint_config,
     sd15_config,
+    sd15_inpaint_config,
+    sd21_config,
     tiny_config,
 )
 from .device import resolve_device  # noqa: F401

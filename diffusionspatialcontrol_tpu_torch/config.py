@@ -1,7 +1,9 @@
 """Typed model/pipeline configuration (PyTorch port).
 
-A copy of ``diffusionspatialcontrol_tpu/config.py`` for the configs the port's
-slice uses, with ``GenerationConfig.dtype`` holding a ``torch.dtype``. The JAX
+A copy of ``diffusionspatialcontrol_tpu/config.py``'s model configs and
+presets (SD1.5, its 9-channel and asymmetric-VAE inpaint variants, SD2.1
+with and without v-prediction, tiny), with ``GenerationConfig.dtype``
+holding a ``torch.dtype``. The JAX
 package's module imports ``jax.numpy``, so the port keeps its own copy instead
 of importing it.
 
@@ -37,7 +39,7 @@ class UNetConfig:
     """UNet2DCondition architecture (SD1.x / SD2.x family)."""
 
     sample_size: int = 64
-    in_channels: int = 4
+    in_channels: int = 4  # 9 for the inpaint UNet variant
     out_channels: int = 4
     block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
     layers_per_block: int = 2
@@ -77,8 +79,9 @@ class VAEConfig:
     layers_per_block: int = 2
     norm_num_groups: int = 32
     scaling_factor: float = 0.18215
-    # The asymmetric (mask-conditioned) decoder is not ported yet; the fields
-    # stay so configs keep the JAX package's shape.
+    # AsymmetricAutoencoderKL-style decoder (inpainting): a mask-condition
+    # encoder feeds known-pixel features into every decoder scale, and the
+    # decoder may be wider and deeper than the encoder.
     asymmetric: bool = False
     decoder_block_out_channels: Optional[Tuple[int, ...]] = None
     decoder_layers_per_block: Optional[int] = None
@@ -106,6 +109,38 @@ class ModelConfig:
 
 def sd15_config(**overrides) -> ModelConfig:
     return dataclasses.replace(ModelConfig(), **overrides)
+
+
+def sd15_inpaint_config() -> ModelConfig:
+    cfg = ModelConfig()
+    return dataclasses.replace(
+        cfg, name="sd15-inpaint",
+        unet=dataclasses.replace(cfg.unet, in_channels=9))
+
+
+def sd15_asym_inpaint_config(scale: float = 1.0) -> ModelConfig:
+    """9-channel inpaint UNet + asymmetric (mask-conditioned) VAE decoder,
+    its channels widened by ``scale`` and one resnet deeper a block."""
+    cfg = sd15_inpaint_config()
+    dec = tuple(int(c * scale) for c in cfg.vae.block_out_channels)
+    return dataclasses.replace(
+        cfg, name="sd15-inpaint-asym",
+        vae=dataclasses.replace(
+            cfg.vae, asymmetric=True, decoder_block_out_channels=dec,
+            decoder_layers_per_block=cfg.vae.layers_per_block + 1))
+
+
+def sd21_config(v_prediction: bool = False) -> ModelConfig:
+    """SD 2.1 (base: epsilon at 512^2; -v: v_prediction at 768^2): OpenCLIP
+    text encoder (gelu), 64-wide heads, linear transformer projections."""
+    return ModelConfig(
+        name="sd21-v" if v_prediction else "sd21",
+        clip=CLIPTextConfig(hidden_size=1024, intermediate_size=4096,
+                            num_layers=23, num_heads=16, hidden_act="gelu"),
+        unet=UNetConfig(cross_attention_dim=1024,
+                        num_attention_heads=(5, 10, 20, 20),
+                        use_linear_projection=True),
+        prediction_type="v_prediction" if v_prediction else "epsilon")
 
 
 def tiny_config() -> ModelConfig:

@@ -77,9 +77,16 @@ def _same_pads(size: int, k: int, stride: int):
     return total // 2, total - total // 2
 
 
-def conv2d(p, x: torch.Tensor, stride: int = 1,
-           padding: str = "SAME") -> torch.Tensor:
-    """NHWC conv with an OIHW kernel; ``padding`` is "SAME" or "VALID"."""
+def conv2d(p, x: torch.Tensor, stride: int = 1, padding: str = "SAME",
+           round_before_bias: bool = False) -> torch.Tensor:
+    """NHWC conv with an OIHW kernel; ``padding`` is "SAME" or "VALID".
+
+    The library conv adds the bias to its fp32 sums and rounds once to
+    ``x.dtype``, as the JAX package's conv with an fp32 output does.
+    ``round_before_bias`` rounds the conv's output to ``x.dtype`` first and
+    adds the bias in that dtype, as its ``preferred=None`` (the
+    ``conv_impl="xla_bf16"`` resnets); in fp32 the two agree (bitwise on
+    the CPU, tests/test_torch_unet.py)."""
     w = p["kernel"].to(x.dtype)
     k = w.shape[-1]
     xc = x.permute(0, 3, 1, 2)  # NCHW view, channels_last in memory
@@ -93,19 +100,23 @@ def conv2d(p, x: torch.Tensor, stride: int = 1,
             xc = F.pad(xc, (pw[0], pw[1], ph[0], ph[1]))
     elif padding != "VALID":
         raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
-    y = F.conv2d(xc, w, p["bias"].to(x.dtype), stride=stride, padding=pad)
+    bias = p["bias"].to(x.dtype)
+    if round_before_bias:
+        y = F.conv2d(xc, w, None, stride=stride, padding=pad)
+        return y.permute(0, 2, 3, 1) + bias
+    y = F.conv2d(xc, w, bias, stride=stride, padding=pad)
     return y.permute(0, 2, 3, 1)
 
 
-CONV_IMPLS = ("xla", "pallas", "pallas2")
+CONV_IMPLS = ("xla", "xla_bf16", "pallas", "pallas2")
+FUSED_CONV_IMPLS = ("pallas", "pallas2")
 
 
 def check_conv_impl(conv_impl: Optional[str]) -> str:
-    """The resnet conv path: ``None`` or "xla" (plain convs), "pallas" (K4)
-    or "pallas2" (K5). The JAX package's "xla_bf16" is not ported yet."""
+    """The resnet conv path: ``None`` or "xla" (plain convs), "xla_bf16"
+    (plain convs whose output is rounded to the compute dtype before the
+    bias, see ``conv2d``), "pallas" (K4) or "pallas2" (K5)."""
     conv_impl = conv_impl or "xla"
-    if conv_impl == "xla_bf16":
-        raise NotImplementedError("conv_impl='xla_bf16' is not ported yet")
     if conv_impl not in CONV_IMPLS:
         raise ValueError(f"conv_impl={conv_impl!r}: the port takes one of "
                          f"{CONV_IMPLS}")

@@ -2,8 +2,9 @@
 
 The main path of the JAX package's ``unet_apply``: time embedding, the fused
 per-resnet time projections, resnets on the ``conv_impl`` branch the caller
-names ("xla": plain convs; "pallas"/"pallas2": the fused GN+SiLU+conv
-kernels K4/K5, see ``layers.resnet_fused``), transformers with
+names ("xla": plain convs; "xla_bf16": plain convs with their output
+rounded to the compute dtype before the bias; "pallas"/"pallas2": the fused
+GN+SiLU+conv kernels K4/K5, see ``layers.resnet_fused``), transformers with
 self-attention, region-biased or plain cross-attention and a GEGLU
 feed-forward, down/up sampling and skips.
 Activations are NHWC; attention operands are (B, L, H, D).
@@ -14,8 +15,12 @@ hand-written kernels of ``ops/kernels`` (their plain versions on CPU
 tensors). Any other value raises; there is no plain attention path for
 CUDA tensors.
 
+The SD1.x (conv projections, quick_gelu CLIP) and SD2.x (linear
+projections, 64-wide heads) topologies and the 9-channel inpaint UNet
+(``in_channels=9``) run here.
+
 Not ported yet (passing them raises): FreeU, ControlNet and T2I residuals,
-IP-Adapter, heatmaps, TGATE caching, DeepCache and ``conv_impl="xla_bf16"``.
+IP-Adapter, heatmaps, TGATE caching and DeepCache.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from ..config import UNetConfig
 from ..ops.kernels.flash_attention import flash_attention_nlhd
 from ..ops.kernels.region_attention import region_attention_nlhd
 from .layers import (
+    FUSED_CONV_IMPLS,
     check_conv_impl,
     conv2d,
     conv_init,
@@ -211,15 +217,17 @@ def _temb_projections(resnets, temb):
 
 
 def _resnet_apply(p, x, groups, eps, t, conv_impl="xla"):
-    if conv_impl != "xla":
+    if conv_impl in FUSED_CONV_IMPLS:
         return resnet_fused(p, x, groups, eps, conv_impl, t)
+    rnd = conv_impl == "xla_bf16"
     h = silu(group_norm(p["norm1"], x, groups, eps))
-    h = conv2d(p["conv1"], h)
+    h = conv2d(p["conv1"], h, round_before_bias=rnd)
     h = h + t[:, None, None, :].to(h.dtype)
     h = silu(group_norm(p["norm2"], h, groups, eps))
-    h = conv2d(p["conv2"], h)
+    h = conv2d(p["conv2"], h, round_before_bias=rnd)
     if "conv_shortcut" in p:
-        x = conv2d(p["conv_shortcut"], x, padding="VALID")
+        x = conv2d(p["conv_shortcut"], x, padding="VALID",
+                   round_before_bias=rnd)
     return x + h
 
 

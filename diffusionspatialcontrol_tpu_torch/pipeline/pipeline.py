@@ -1,14 +1,18 @@
-"""txt2img with region control, hires fix and chunked sampling (port of
-``pipeline/pipeline.py``).
+"""txt2img, img2img and inpaint with region control, hires fix and chunked
+sampling (port of ``pipeline/pipeline.py``).
 
 ``StableDiffusionTorch`` is the counterpart of ``StableDiffusionTPU``:
 prompt encoding in the three modes, region encoding, the sigma-space
 denoiser with CFG, every solver of ``samplers.solvers.SOLVERS`` on each of
-the four schedules, VAE decode and uint8 conversion; hires fix (latent
-upscale, then img2img on the latents at the target size, optionally with
-another sampler and schedule); per-step latent history; and
-``sample_chunked``, which returns to the caller between chunks of steps to
-report progress, cancel or pause.
+the four schedules, VAE encode and decode and uint8 conversion; img2img
+from images (``encode_image`` then ``img2img``); inpaint on 4-channel
+UNets (the known region blended back at every denoiser call) and on
+9-channel inpaint UNets (mask and masked-image latents as extra input
+channels), with the asymmetric VAE's mask-conditioned decode; hires fix
+(latent upscale, then img2img on the latents at the target size,
+optionally with another sampler and schedule); per-step latent history;
+and ``sample_chunked``, which returns to the caller between chunks of
+steps to report progress, cancel or pause.
 
 Math parity notes (as in the JAX package):
   * initial latents are scaled by (sigma_0^2 + 1)^0.5;
@@ -17,15 +21,17 @@ Math parity notes (as in the JAX package):
     CompVisDenoiser / CompVisVDenoiser do, with c_in = 1/sqrt(sigma^2+1) and
     the fractional timestep from log-sigma interpolation.
 
-Randomness: each sample draws its initial latents (and img2img its noise)
-and then its solver noise from its own CPU ``torch.Generator``
-(``samplers.brownian``), so a sample's result depends only on its seed, not
-on the batch it rides in, on the device or on whether latents were passed.
-The streams differ from JAX's threefry streams; tests pass ``latents=`` and
-patch ``initial_noise`` and ``_solver_noise`` to compare the two packages.
+Randomness: each sample draws from its own CPU ``torch.Generator``
+(``samplers.brownian``), in a fixed order: txt2img its initial latents,
+img2img its noise, then the solver noise; ``encode_image`` its posterior
+draw; inpaint the posterior draw, the initial latents, the blend noise
+(4-channel UNets only), then the solver noise. So a sample's result depends
+only on its seed, not on the batch it rides in, on the device or on whether
+latents were passed. The streams differ from JAX's threefry streams; tests
+pass ``latents=`` and patch ``initial_noise``, ``seeded_normals`` and
+``_solver_noise`` to compare the two packages.
 
-Not ported yet: img2img from images (``vae_encode``), inpaint, ControlNet,
-T2I-Adapter, IP-Adapter and the speed modes.
+Not ported yet: ControlNet, T2I-Adapter, IP-Adapter and the speed modes.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from ..config import GenerationConfig, ModelConfig
 from ..device import resolve_device
 from ..models.layers import check_conv_impl
 from ..models.unet import RegionState, UNetCond, flash_options, unet_apply
-from ..models.vae import vae_decode
+from ..models.vae import vae_decode, vae_encode
 from ..ops.resize import resize_latents
 from ..samplers import brownian, schedules, solvers
 
@@ -77,6 +83,21 @@ def _interleave_cfg(a: torch.Tensor) -> torch.Tensor:
         (-1,) + tuple(a.shape[1:]))
 
 
+@dataclasses.dataclass
+class DenoiseExtras:
+    """The denoiser's inpaint inputs (the JAX package's ``DenoiseExtras``
+    also carries ControlNet, T2I-Adapter and IP-Adapter inputs, which are
+    not ported). ``extra_channels`` is CFG-doubled ([uncond..., cond...])
+    when guidance is on."""
+
+    # 4-channel inpaint blend
+    inpaint_mask: Optional[torch.Tensor] = None  # (B, h, w, 1), 1 = regenerate
+    inpaint_image_latents: Optional[torch.Tensor] = None  # (B, h, w, 4)
+    inpaint_noise: Optional[torch.Tensor] = None  # (B, h, w, 4)
+    # 9-channel inpaint UNet input [mask, masked-image latents]
+    extra_channels: Optional[torch.Tensor] = None  # (B_cfg, h, w, 5)
+
+
 def make_denoise_fn(
     params: Dict[str, Any],
     model_cfg: ModelConfig,
@@ -88,10 +109,20 @@ def make_denoise_fn(
     attn_impl: str = "pallas",
     compute_dtype=torch.bfloat16,
     conv_impl: str = "xla",
+    extras: Optional[DenoiseExtras] = None,
 ):
-    """The sigma-space denoiser D(x; sigma); sigma is a 0-d fp32 tensor."""
+    """The sigma-space denoiser D(x; sigma); sigma is a 0-d fp32 tensor.
+
+    ``extras`` (inpaint): with ``inpaint_mask``, every call first blends
+    the known region back into x, ``m x + (1 - m)(image_latents + sigma
+    noise)``, before the CFG duplication; with ``extra_channels``, they are
+    appended to the UNet's input after the c_in scaling, in the compute
+    dtype."""
     do_cfg = guidance_scale > 1.0
+    ex = extras or DenoiseExtras()
     context = context.to(compute_dtype)
+    extra = (None if ex.extra_channels is None
+             else ex.extra_channels.to(compute_dtype))
     if region_biases is not None and region_biases[0].shape[-1] != \
             context.shape[1]:
         raise ValueError(
@@ -101,17 +132,25 @@ def make_denoise_fn(
             f"a context of 77 n, so its ids cannot build a map (nor can they "
             f"in the JAX package)")
     if do_cfg:
+        if extra is not None and extra.shape[0] == context.shape[0]:
+            extra = _interleave_cfg(extra)
         context = _interleave_cfg(context)
         if region_biases is not None:
             region_biases = tuple(_interleave_cfg(b) for b in region_biases)
 
     def denoise(x, sigma):
+        if ex.inpaint_mask is not None:
+            m = ex.inpaint_mask
+            proper = ex.inpaint_image_latents + sigma * ex.inpaint_noise
+            x = m * x + (1.0 - m) * proper
         x_in = (torch.stack([x, x], dim=1).reshape((-1,) + tuple(x.shape[1:]))
                 if do_cfg else x)
         c_in = 1.0 / torch.sqrt(sigma ** 2 + 1.0)
         t = _sigma_to_t(sigma, log_sigma_table)
         t_b = t.expand(x_in.shape[0])
         model_in = (x_in * c_in).to(compute_dtype)
+        if extra is not None:
+            model_in = torch.cat([model_in, extra], dim=-1)
         region = (None if region_biases is None
                   else RegionState(region_biases, sigma))
         out = unet_apply(params["unet"], model_cfg.unet, model_in, t_b,
@@ -136,23 +175,37 @@ def make_denoise_fn(
 
 
 def to_uint8(images: torch.Tensor) -> torch.Tensor:
-    """[-1, 1] fp32 images -> uint8, on the images' device."""
+    """[-1, 1] images -> uint8, on the images' device, as the JAX package's
+    native codec converts them: ``v = clamp(x 0.5 + 0.5, 0, 1) 255 + 0.5``
+    in fp32, truncated, so ties round up (separate fp32 ops, no fused
+    multiply-add, as the codec is compiled)."""
     if images.dtype == torch.uint8:
         return images
-    return torch.round(
-        torch.clamp(images * 0.5 + 0.5, 0.0, 1.0) * 255.0).to(torch.uint8)
+    v = torch.clamp(images.float() * 0.5 + 0.5, 0.0, 1.0) * 255.0
+    return (v + 0.5).to(torch.uint8)
+
+
+def seeded_normals(seeds: Sequence[int], shape: Tuple[int, ...], count: int,
+                   device: torch.device) -> torch.Tensor:
+    """The first ``count`` standard-normal draws of ``shape`` from each
+    sample's generator, (count, len(seeds)) + shape: an inpaint request's
+    posterior draw, initial latents and blend noise, in that order, or
+    ``encode_image``'s posterior draw. Drawn on the CPU, so that a seed
+    gives the same noise on every device."""
+    draws = []
+    for s in seeds:
+        g = torch.Generator().manual_seed(int(s))
+        draws.append(torch.stack([
+            torch.randn(shape, generator=g, dtype=torch.float32)
+            for _ in range(count)]))
+    return torch.stack(draws, dim=1).to(device)
 
 
 def initial_noise(seeds: Sequence[int], shape: Tuple[int, ...],
                   device: torch.device) -> torch.Tensor:
-    """Standard-normal latents (len(seeds),) + shape, one generator a
-    sample: txt2img's initial latents and img2img's noise. Drawn on the
-    CPU, so that a seed gives the same noise on every device."""
-    draws = []
-    for s in seeds:
-        g = torch.Generator().manual_seed(int(s))
-        draws.append(torch.randn(shape, generator=g, dtype=torch.float32))
-    return torch.stack(draws).to(device)
+    """Standard-normal latents (len(seeds),) + shape, the first draw of each
+    sample's generator: txt2img's initial latents and img2img's noise."""
+    return seeded_normals(seeds, shape, 1, device)[0]
 
 
 def _seed_list(seed: SeedT, batch: int) -> List[int]:
@@ -160,6 +213,16 @@ def _seed_list(seed: SeedT, batch: int) -> List[int]:
     if isinstance(seed, (list, tuple, np.ndarray)):
         return [int(s) for s in seed]
     return [int(seed) + i for i in range(batch)]
+
+
+def _batch_seeds(seed: SeedT, batch: int, what: str) -> List[int]:
+    """``_seed_list`` for a batch of ``batch`` given inputs: a seed list
+    must have one seed a sample."""
+    seeds = _seed_list(seed, batch)
+    if len(seeds) != batch:
+        raise ValueError(f"{what} seed list length {len(seeds)} != batch "
+                         f"{batch}")
+    return seeds
 
 
 def _next_seed(seed: SeedT) -> SeedT:
@@ -199,16 +262,17 @@ class ChunkedPause:
 
 
 class StableDiffusionTorch:
-    """txt2img and img2img on latents with optional region control, every
-    solver and schedule of the app's sampler table, hires fix and chunked
-    sampling.
+    """txt2img, img2img (on latents, or on images through ``encode_image``)
+    and inpaint with optional region control, every solver and schedule of
+    the app's sampler table, hires fix and chunked sampling.
 
     ``device`` defaults to CUDA and raises when there is none; CPU runs pass
     ``device="cpu"``. ``attn_impl`` takes the JAX package's kernel strings,
     "pallas[+qkbf16][+pvbf16][+exp2]" (see ``models.unet.flash_options``);
     ``conv_impl`` the resnet conv path, "xla" (the default: plain convs),
-    "pallas" (K4) or "pallas2" (K5), for the UNet and the VAE decoder alike.
-    Anything else raises."""
+    "xla_bf16" (plain convs, output rounded to the compute dtype before the
+    bias), "pallas" (K4) or "pallas2" (K5), for the UNet and both halves of
+    the VAE alike. Anything else raises."""
 
     def __init__(self, model_cfg: ModelConfig, params: Dict[str, Any],
                  tokenizer=None, attn_impl: str = "pallas",
@@ -271,16 +335,25 @@ class StableDiffusionTorch:
             defaults.get("discard_next_to_last_sigma", False))
         return sigmas, defaults
 
+    def _cut_schedule(self, gen: GenerationConfig, strength: float):
+        """The sigmas of the last ``strength`` of the schedule (img2img and
+        inpaint)."""
+        sigmas, _ = self._schedule(gen)
+        steps = gen.num_inference_steps
+        return sigmas[max(steps - min(int(steps * strength), steps), 0):]
+
     def _solver_noise(self, seeds: Sequence[int], sigmas: np.ndarray,
-                      shape: Tuple[int, ...], solver_name: str):
+                      shape: Tuple[int, ...], solver_name: str,
+                      skip: int = 1):
         """The per-step noise table of ``shape`` = (B, h, w, 4), or None for
-        a deterministic solver."""
+        a deterministic solver; ``skip``: the draws each stream made before
+        it (``brownian.step_noise``)."""
         _, draws, _ = solvers.SOLVERS[solver_name]
         if draws == 0:
             return None
         return brownian.step_noise(
             seeds, solvers.scan_length(solver_name, sigmas), draws,
-            tuple(shape[1:]), self.device)
+            tuple(shape[1:]), self.device, skip=skip)
 
     def _solver_opts(self, gen: GenerationConfig, defaults: dict) -> dict:
         opts = {k: v for k, v in defaults.items()
@@ -291,23 +364,25 @@ class StableDiffusionTorch:
             opts["eta"] = gen.eta
         return opts
 
-    def _denoiser(self, context, region_biases, gen):
+    def _denoiser(self, context, region_biases, gen, extras=None):
         return make_denoise_fn(
             self.params, self.model_cfg, context.to(self.device),
             region_biases, self.log_sigma_table, gen.guidance_scale,
             gen.guidance_rescale, self.attn_impl, compute_dtype=gen.dtype,
-            conv_impl=self.conv_impl)
+            conv_impl=self.conv_impl, extras=extras)
 
-    def _decode(self, x, uint8_output):
+    def _decode(self, x, uint8_output, cond_image=None, cond_mask=None):
         images = vae_decode(self.params["vae"], self.model_cfg.vae, x,
+                            cond_image=cond_image, cond_mask=cond_mask,
                             conv_impl=self.conv_impl)
         return to_uint8(images) if uint8_output else images
 
     def _sample(self, x, context, region_biases, sigmas, gen, noise, decode,
-                uint8_output, return_history=False):
+                uint8_output, return_history=False, extras=None):
         solver_fn, _, defaults = solvers.SOLVERS[gen.sampler]
-        res = solver_fn(self._denoiser(context, region_biases, gen), x,
-                        sigmas, noise=noise, return_history=return_history,
+        res = solver_fn(self._denoiser(context, region_biases, gen, extras),
+                        x, sigmas, noise=noise,
+                        return_history=return_history,
                         **self._solver_opts(gen, defaults))
         x, hist = res if return_history else (res, None)
         if decode:
@@ -417,22 +492,116 @@ class StableDiffusionTorch:
         (B, h, w, 4) *scaled* latents; ``seed`` as in ``txt2img``. Returns
         what ``txt2img`` returns."""
         _check_unsupported(unsupported)
-        sigmas, _ = self._schedule(gen)
-        steps = gen.num_inference_steps
-        t_start = max(steps - min(int(steps * strength), steps), 0)
-        sigma_sched = sigmas[t_start:]
+        sigma_sched = self._cut_schedule(gen, strength)
         init = torch.as_tensor(init_latents, dtype=torch.float32,
                                device=self.device)
-        seeds = _seed_list(seed, init.shape[0])
-        if len(seeds) != init.shape[0]:
-            raise ValueError(f"img2img seed list length {len(seeds)} != "
-                             f"batch {init.shape[0]}")
+        seeds = _batch_seeds(seed, init.shape[0], "img2img")
         noise0 = initial_noise(seeds, tuple(init.shape[1:]), self.device)
         x = init + noise0 * float(np.sqrt(sigma_sched[0] ** 2 + 1.0))
         noise = self._solver_noise(seeds, sigma_sched, tuple(init.shape),
                                    gen.sampler)
         return self._sample(x, context, region_biases, sigma_sched, gen,
                             noise, decode, uint8_output, return_history)
+
+    @torch.inference_mode()
+    def inpaint(self, context: torch.Tensor, init_image: torch.Tensor,
+                mask: torch.Tensor, gen: GenerationConfig,
+                strength: float = 1.0, seed: SeedT = 0, region_biases=None,
+                decode: bool = True, uint8_output: bool = False,
+                return_history: bool = False, **unsupported):
+        """Inpaint ``init_image`` (B, H, W, 3) in [-1, 1] where ``mask``
+        (B, H, W) is 1 (regenerate); ``seed`` as in ``txt2img``.
+
+        The schedule is cut by ``strength`` as in img2img. A 4-channel UNet
+        gets the known region blended back at every denoiser call (the
+        latents the solver returns stay unblended, as in the JAX package); a
+        9-channel inpaint UNet gets [mask, masked-image latents] as extra
+        input channels. The latents start from pure noise when ``strength``
+        >= 1 or the UNet has 9 channels, else from the init image's latents
+        noised to the first sigma. An asymmetric VAE decodes with the masked
+        init image and the mask as its condition.
+
+        Each sample's generator draws, in order: the posterior draw (shared
+        by both encodes of a 9-channel request, as JAX shares its key), the
+        initial latents, the blend noise (4-channel UNets only), then the
+        solver noise. A 9-channel request never reads the unmasked image's
+        latents, so it does not encode the unmasked image.
+
+        Returns what ``txt2img`` returns (with ``return_history``, the
+        history of the unblended latents)."""
+        _check_unsupported(unsupported)
+        init = torch.as_tensor(init_image, dtype=torch.float32,
+                               device=self.device)
+        mask = torch.as_tensor(mask, dtype=torch.float32, device=self.device)
+        b, h, w, _ = init.shape
+        if tuple(mask.shape) != (b, h, w):
+            raise ValueError(f"mask {tuple(mask.shape)} must be (B, H, W) = "
+                             f"{(b, h, w)}")
+        seeds = _batch_seeds(seed, b, "inpaint")
+        latent_shape = (h // 8, w // 8, 4)
+        nine_channel = self.model_cfg.unet.in_channels == 9
+        draws = seeded_normals(seeds, latent_shape, 2 if nine_channel else 3,
+                               self.device)
+        eps, noise0 = draws[0], draws[1]
+        sigma_sched = self._cut_schedule(gen, strength)
+        mask_full = mask[..., None]
+        mask_l = resize_latents(mask_full, h // 8, w // 8, mode="nearest")
+        masked_image = init * (1.0 - mask_full)
+        image_latents = None
+        if nine_channel:
+            extra = torch.cat([mask_l, self._encode(masked_image, eps)],
+                              dim=-1)
+            if gen.guidance_scale > 1.0:
+                extra = torch.cat([extra, extra], dim=0)
+            extras = DenoiseExtras(extra_channels=extra)
+        else:
+            image_latents = self._encode(init, eps)
+            extras = DenoiseExtras(inpaint_mask=mask_l,
+                                   inpaint_image_latents=image_latents,
+                                   inpaint_noise=draws[2])
+        x = noise0 * float(np.sqrt(sigma_sched[0] ** 2 + 1.0))
+        if strength < 1.0 and not nine_channel:
+            x = image_latents + x
+        noise = self._solver_noise(seeds, sigma_sched, (b,) + latent_shape,
+                                   gen.sampler, skip=draws.shape[0])
+        asym = self.model_cfg.vae.asymmetric
+        out = self._sample(x, context, region_biases, sigma_sched, gen, noise,
+                           decode and not asym, uint8_output, return_history,
+                           extras)
+        if not (decode and asym):
+            return out
+        out, history = out if return_history else (out, None)
+        out = self._decode(out, uint8_output, cond_image=masked_image,
+                           cond_mask=mask_full)
+        return (out, history) if return_history else out
+
+    # -- codecs -------------------------------------------------------------
+
+    def _encode(self, images, eps):
+        return vae_encode(self.params["vae"], self.model_cfg.vae, images,
+                          eps=eps, conv_impl=self.conv_impl)
+
+    @torch.inference_mode()
+    def encode_image(self, images: torch.Tensor, seed: SeedT = 0
+                     ) -> torch.Tensor:
+        """images (B, H, W, 3) in [-1, 1] -> scaled latents (B, H/8, W/8, 4),
+        one posterior draw a sample: the first draw of the generator of
+        seed, seed + 1, ... (or of each seed of a list). ``img2img`` with
+        the same seed takes its noise from that same first draw; the JAX
+        package draws the two from separate keys."""
+        images = torch.as_tensor(images, dtype=torch.float32,
+                                 device=self.device)
+        b, h, w, _ = images.shape
+        seeds = _batch_seeds(seed, b, "encode_image")
+        eps = seeded_normals(seeds, (h // 8, w // 8, 4), 1, self.device)[0]
+        return self._encode(images, eps)
+
+    @torch.inference_mode()
+    def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
+        """Scaled latents (B, h, w, 4) -> fp32 images (B, 8h, 8w, 3) in
+        [-1, 1]."""
+        return self._decode(torch.as_tensor(latents, device=self.device),
+                            False)
 
     @torch.inference_mode()
     def sample_chunked(self, context: torch.Tensor, gen: GenerationConfig,

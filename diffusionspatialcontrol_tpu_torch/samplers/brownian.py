@@ -14,10 +14,12 @@ reproduced here, so the port has its own, with the same guarantees:
 
 Seed derivation: sample seed ``s`` owns one stream, the CPU generator
 seeded with ``s``. ``pipeline.initial_noise`` takes the first draw of it
-(txt2img's initial latents, or img2img's noise); this module skips that
-draw and takes the solver noise from what follows. So the noise never
-repeats the latents' values for any seed, and it does not depend on whether
-the latents were drawn or passed in (the skipped draw is made either way).
+(txt2img's initial latents, or img2img's noise); inpaint takes its first
+two or three (the posterior draw, the initial latents, the 4-channel
+blend's noise: ``pipeline.seeded_normals``). This module skips those draws
+and takes the solver noise from what follows. So the noise never repeats
+the latents' values for any seed, and it does not depend on whether the
+latents were drawn or passed in (the skipped draws are made either way).
 """
 
 from __future__ import annotations
@@ -28,13 +30,17 @@ import torch
 
 
 def step_noise(seeds: Sequence[int], n_steps: int, draws_per_step: int,
-               sample_shape: Tuple[int, ...], device) -> torch.Tensor:
+               sample_shape: Tuple[int, ...], device,
+               skip: int = 1) -> torch.Tensor:
     """Standard normal noise (n_steps, draws_per_step, B, *sample_shape),
-    B = len(seeds); ``sample_shape`` is one sample's latent shape."""
+    B = len(seeds); ``sample_shape`` is one sample's latent shape. Each
+    stream first skips ``skip`` draws of that shape (the initial latents',
+    and an inpaint request's other draws)."""
     per_sample = []
     for s in seeds:
         g = torch.Generator().manual_seed(int(s))
-        torch.randn(sample_shape, generator=g)  # the initial latents' draw
+        for _ in range(skip):
+            torch.randn(sample_shape, generator=g)
         per_sample.append(torch.randn((n_steps, draws_per_step)
                                       + tuple(sample_shape), generator=g))
     return torch.stack(per_sample, dim=2).to(device)

@@ -29,6 +29,8 @@ from diffusionspatialcontrol_tpu_torch.models import unet as tunet
 from diffusionspatialcontrol_tpu_torch.models import vae as tvae
 from diffusionspatialcontrol_tpu_torch.ops.kernels import conv_fused as tconv
 
+from test_torch_vae import to_jax
+
 _DT = {"fp32": (np.float32, jnp.float32, torch.float32),
        "bf16": (None, jnp.bfloat16, torch.bfloat16)}
 
@@ -136,26 +138,11 @@ def test_resnet_matches_jax_fused_resnet(where, conv_impl):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
 
 
-def _to_jax(tree, name=None):
-    """The port's parameter tree in the JAX package's layouts (the inverse
-    of ``params_from_jax``); quicker than the JAX package's own init."""
-    if isinstance(tree, dict):
-        return {k: _to_jax(v, k) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to_jax(v) for v in tree]
-    a = tree.numpy()
-    if name == "kernel" and a.ndim == 4:
-        a = a.transpose(2, 3, 1, 0)
-    elif name == "kernel" and a.ndim == 2:
-        a = a.T
-    return jnp.asarray(np.ascontiguousarray(a))
-
-
 @pytest.fixture(scope="module")
 def vae_params():
     tp = tvae.vae_init(torch.Generator().manual_seed(0),
                        tcfg.tiny_config().vae, torch.float32, "cpu")
-    return _to_jax(tp), tp
+    return to_jax(tp), tp
 
 
 @pytest.mark.parametrize("conv_impl", ["pallas", "pallas2"])
@@ -173,7 +160,8 @@ def test_vae_decode_fused_matches_jax_xla(vae_params, conv_impl):
 
 def test_conv_shapes_are_the_calls_the_port_makes(monkeypatch):
     """chip_smoke.resnet_conv_shapes, which sets the launch counts the card
-    run asserts, lists exactly the fused convs the tiny UNet and VAE make."""
+    run asserts, lists exactly the fused convs the tiny UNet, VAE decoder
+    and VAE encoder make."""
     calls = []
     plain = tconv.gn_silu_conv3x3_plain
 
@@ -190,12 +178,17 @@ def test_conv_shapes_are_the_calls_the_port_makes(monkeypatch):
     tunet.unet_apply(tunet.unet_init(g, cfg.unet, torch.float32, "cpu"),
                      cfg.unet, torch.zeros(2, 8, 8, 4),
                      torch.tensor([10.0, 10.0]), cond, conv_impl="pallas")
-    tvae.vae_decode(tvae.vae_init(g, cfg.vae, torch.float32, "cpu"), cfg.vae,
-                    torch.zeros(1, 8, 8, 4), conv_impl="pallas2")
-    want = [s[1:] for s in chip_smoke.resnet_conv_shapes(cfg, 64, 64)]
-    assert calls == want
-    assert collections.Counter(s[0] for s in chip_smoke.resnet_conv_shapes(
-        cfg, 64, 64)) == {"unet": 44, "vae": 28}
+    vae = tvae.vae_init(g, cfg.vae, torch.float32, "cpu")
+    tvae.vae_decode(vae, cfg.vae, torch.zeros(1, 8, 8, 4),
+                    conv_impl="pallas2")
+    tvae.vae_encode(vae, cfg.vae, torch.zeros(1, 64, 64, 3),
+                    sample_mode="argmax", conv_impl="pallas")
+    shapes = chip_smoke.resnet_conv_shapes(cfg, 64, 64, encoder=True)
+    assert calls == [s[1:] for s in shapes]
+    assert collections.Counter(s[0] for s in shapes) == {
+        "unet": 44, "vae": 28, "vae_enc": 20}
+    assert chip_smoke.resnet_conv_shapes(cfg, 64, 64) == [
+        s for s in shapes if s[0] != "vae_enc"]
 
 
 def _jax_routes(h, w, c_in, c_out, has_skip, itemsize=2):
@@ -234,6 +227,25 @@ def test_no_sd15_resnet_conv_takes_the_jax_vmem_fallback(size):
             1024: {("unet", "K4a"): 34, ("unet", "K4b"): 10,
                    ("vae", "K4b"): 28}}[size]
     assert routes == want
+
+
+def test_no_sd15_encoder_conv_takes_the_jax_vmem_fallback():
+    """The VAE encoder's resnet convs of a 512^2 image (img2img and
+    inpaint) in bf16: the JAX tile searches succeed on every one, and K4b
+    is taken exactly where chip_smoke.jax_sends_to_k4b says, at 512^2,
+    256^2 and 128^2."""
+    shapes = [sh for sh in chip_smoke.resnet_conv_shapes(
+        tcfg.sd15_config(), 512, 512, encoder=True) if sh[0] == "vae_enc"]
+    routes = collections.Counter()
+    for _, _, h, w, c_in, c_out, _, skip in shapes:
+        v1, v2 = _jax_routes(h, w, c_in, c_out, skip)
+        assert v1 is not None and v2, (h, w, c_in, c_out)
+        assert (v1 == "K4b") == chip_smoke.jax_sends_to_k4b(h, w)
+        routes[v1, h] += 1
+    assert routes == {("K4b", 512): 4, ("K4b", 256): 4, ("K4b", 128): 4,
+                      ("K4a", 64): 8}
+    assert {(c_in, c_out) for _, _, _, _, c_in, c_out, _, _ in shapes} == {
+        (128, 128), (128, 256), (256, 256), (256, 512), (512, 512)}
 
 
 def test_port_takes_a_map_the_jax_search_refuses():

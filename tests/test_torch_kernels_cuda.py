@@ -484,3 +484,56 @@ def test_k2_at_the_k3_shape_matches_plain(dev):
     for i in range(0, 16384, 2048):
         _assert_bf16_close(got[:, i:i + 2048], k2.flash_attention_plain(
             q[:, i:i + 2048].float(), kf, vf))
+
+
+# The VAE encoder's resnet convs on new channel pairs (img2img and inpaint
+# at 512^2: conv1 of the first resnet of levels 1 and 2), at their maps.
+ENCODER_SHAPES = [(1, 256, 256, 128, 256, False, False),
+                  (1, 128, 128, 256, 512, False, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", ["K4", "K5"])
+@pytest.mark.parametrize("shape", ENCODER_SHAPES,
+                         ids=lambda s: "x".join(map(str, s[:5])))
+def test_conv_kernels_at_the_encoder_channel_pairs(dev, version, shape):
+    """fp32 (the encoder's dtype on an fp32 image: the CUDA-core bodies) and
+    bf16 (the tensor-core bodies), tolerances as above."""
+    from diffusionspatialcontrol_tpu_torch.ops.kernels import conv_fused as kc
+
+    launch = _conv_launcher(version)
+    b, h, w, c_in, c_out, temb, skip = shape
+    ops = _conv_operands(dev, b, h, w, c_in, c_out, torch.float32, temb, skip,
+                         seed=5)
+    torch.testing.assert_close(launch(*ops), kc.gn_silu_conv3x3_plain(*ops),
+                               rtol=0, atol=5e-5)
+    ops = _conv_operands(dev, b, h, w, c_in, c_out, torch.bfloat16, temb,
+                         skip, seed=6)
+    _assert_conv_bf16_close(launch(*ops),
+                            kc.gn_silu_conv3x3_plain(*ops).float())
+
+
+# SD2.1 at 512^2: (L, heads) of each UNet level, D = 64, S = 77 text tokens.
+SD21_LEVELS = [(4096, 5), (1024, 10), (256, 20), (64, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,h", SD21_LEVELS, ids=lambda v: str(v))
+def test_k1_k2_at_the_sd21_shapes(dev, l, h):
+    """K2's self-attention (S = L) and K1's region cross-attention (S = 77)
+    at D = 64 with SD2.1's head counts, bf16 (the tensor-core body) and
+    fp32 (the CUDA-core body), against the plain versions."""
+    q, k, v = _qkv(dev, 2, l, l, h, 64, torch.bfloat16, seed=7)
+    _assert_bf16_close(k2.flash_attention_kernel(q, k, v),
+                       k2.flash_attention_plain(q.float(), k.float(),
+                                                v.float()))
+    q, k, v = _qkv(dev, 2, l, 77, h, 64, torch.bfloat16, seed=8)
+    w = torch.randn(2, l, 77, device=dev)
+    _assert_bf16_close(
+        k1.region_softmax_attention_kernel(q, k, v, w),
+        k1.region_softmax_attention_plain(q.float(), k.float(), v.float(),
+                                          w))
+    q, k, v = (t.float() for t in (q, k, v))
+    torch.testing.assert_close(
+        k1.region_softmax_attention_kernel(q, k, v, w),
+        k1.region_softmax_attention_plain(q, k, v, w), rtol=2e-4, atol=2e-5)

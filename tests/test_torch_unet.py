@@ -32,6 +32,8 @@ def unet_params():
 
 
 _jax_unet = jax.jit(junet.unet_apply, static_argnums=(1,))
+_jax_unet_impl = jax.jit(junet.unet_apply, static_argnums=(1,),
+                         static_argnames=("attn_impl", "conv_impl"))
 
 
 def _inputs(seed):
@@ -98,10 +100,46 @@ def test_unet_rejects_unported_options(unet_params):
             torch.from_numpy(t), cond)
     with pytest.raises(NotImplementedError):
         tunet.unet_apply(*args, freeu=object())
-    with pytest.raises(NotImplementedError):
-        tunet.unet_apply(*args, conv_impl="xla_bf16")
     with pytest.raises(ValueError):
         tunet.unet_apply(*args, conv_impl="cudnn")
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_unet_conv_impl_xla_bf16_matches_jax(unet_params, dtype):
+    """``conv_impl="xla_bf16"`` rounds each resnet conv's output to the
+    compute dtype before its bias. In fp32 that rounds nothing: bitwise
+    equal to "xla", and within the fp32 UNet tolerance of the JAX UNet
+    (whose "xla_bf16" equals its "xla" bitwise in fp32,
+    tests/test_conv_fused.py, so the jitted "xla" UNet stands for it). In
+    bf16, within atol/rtol 0.05 of JAX's "xla_bf16", the bound
+    tests/test_conv_fused.py holds that path to against "xla"."""
+    jp, tp = unet_params
+    x, ctx, t, _ = _inputs(4)
+    if dtype == "fp32":
+        want = np.asarray(_jax_unet(
+            jp, jcfg.tiny_config().unet, jnp.asarray(x), jnp.asarray(t),
+            junet.UNetCond(context=jnp.asarray(ctx))))
+        tdt = torch.float32
+    else:
+        jp = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), jp)
+        want = np.asarray(_jax_unet_impl(
+            jp, jcfg.tiny_config().unet, jnp.asarray(x, jnp.bfloat16),
+            jnp.asarray(t),
+            junet.UNetCond(context=jnp.asarray(ctx, jnp.bfloat16)),
+            attn_impl="xla", conv_impl="xla_bf16"), np.float32)
+        tdt = torch.bfloat16
+    tp = jax.tree_util.tree_map(lambda a: a.to(tdt), tp)
+    args = (tp, tcfg.tiny_config().unet, torch.from_numpy(x).to(tdt),
+            torch.from_numpy(t),
+            tunet.UNetCond(context=torch.from_numpy(ctx).to(tdt)))
+    got = tunet.unet_apply(*args, conv_impl="xla_bf16")
+    assert got.dtype == tdt
+    if dtype == "fp32":
+        assert torch.equal(got, tunet.unet_apply(*args, conv_impl="xla"))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0.05,
+                                   atol=0.05)
 
 
 @pytest.mark.parametrize("attn_impl", ["xla", "pallas+bogus", "flash"])
