@@ -6,7 +6,8 @@ Phases, in order; any failure ends the run with a non-zero exit and no
 result line:
 
 1. build: compile every CUDA source of the port with nvcc (one process per
-   source, all started together) and print the card's name and power limit;
+   source, all started together) and the image codec with g++, and print
+   the card's name and power limit;
 2. kernels: K1 (region attention) and K2 (attention) against their plain
    PyTorch versions at every shape the SD1.5 512^2 main path gives them,
    and both at the S of longer prompts at every level: the context lengths
@@ -63,7 +64,15 @@ result line:
    next loads. It checks every image, the UNet calls and the kernels'
    exact launch counts, prints the p50 seconds per image of each request
    type after one warm-up, and profiles one request of most types by its
-   kernels (the spatial request also with the host's ops).
+   kernels (the spatial request also with the host's ops);
+5. app: the app layer on SD1.5 at full width: ``ModelManager()`` behind the
+   JSON HTTP server, in this process. The spatial request over HTTP (the
+   PNGs decoded here and held bit for bit to a direct ``inference()`` call
+   and to the pipeline; repeated POSTs byte-identical), a job polled to
+   25/25 and one cancelled while queued, 2 x 2 grids, a hires request and
+   ``/warmup``, with exact UNet calls and launches; the HTTP, direct and
+   pipeline p50s side by side, and one HTTP request profiled by its
+   kernels.
 
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.
@@ -78,6 +87,7 @@ times are taken alike.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -87,7 +97,7 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("build", "kernels", "tiny", "main")
+PHASES = ("build", "kernels", "tiny", "main", "app")
 
 PROMPT = "a red cat sitting on a wooden bench, a blue bird flying"
 NEG = "bad quality, low quality, jpeg artifact, cropped"
@@ -135,6 +145,7 @@ LONG_PROMPT = (
 # above.
 K3_SHAPES = ((16384, 40), (32640, 40))
 HIRES = 1024
+ROUNDS = 4  # phase app: timed rounds of each path after one warm-up
 NEW_SEEDS = [0, 1, 2, 3, 4]  # the images-in and SD2.1 requests: a warm-up
 
 _PALLAS = "diffusionspatialcontrol_tpu/ops/pallas/"
@@ -321,10 +332,15 @@ def log_option_times(tag, timer, q, k, v, reps: int = 10):
 
 def phase_build(ctx):
     from diffusionspatialcontrol_tpu_torch.ops.kernels import _build
+    from diffusionspatialcontrol_tpu_torch.runtime import native
 
     seconds = _build.build()
     log(f"build: {len(_build.SOURCES)} CUDA sources in {seconds:.1f} s "
         f"({', '.join(str(_build.library_path(n).name) for n in _build.SOURCES)})")
+    t0 = time.perf_counter()
+    native.tensor_to_u8(np.zeros(1, np.float32))  # raises if it cannot build
+    log(f"build: the image codec (native/src/imagecodec.cc) in "
+        f"{time.perf_counter() - t0:.1f} s ({native.library_path().name})")
     log(f"card: {card_line()}")
 
 
@@ -1432,6 +1448,319 @@ def main_other_models(ctx, gen, state, init, mask):
     torch.cuda.empty_cache()
 
 
+def decode_png(data: bytes) -> np.ndarray:
+    """A short PNG decoder on Python's zlib for what the codec writes: 8-bit
+    RGB, not interlaced, every scanline unfiltered (filter type 0). Checks
+    the signature and every chunk's CRC."""
+    import struct
+    import zlib
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("png: bad signature")
+    pos, idat, hdr = 8, [], None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(kind + body) != crc:
+            raise AssertionError(f"png: bad CRC in {kind!r}")
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    w, h, depth, colour, _, _, interlace = hdr
+    if (depth, colour, interlace) != (8, 2, 0):
+        raise AssertionError(f"png: header {hdr} is not 8-bit RGB")
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    rows = raw.reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError("png: a filtered scanline")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def _http(port: int, path: str, payload=None):
+    """(status, JSON body, seconds) of one request to the local server."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as f:
+            status, body = f.status, f.read()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read()
+    return status, json.loads(body), time.perf_counter() - t0
+
+
+def _pngs(out) -> np.ndarray:
+    import base64
+
+    return np.stack([decode_png(base64.b64decode(s)) for s in out["images"]])
+
+
+def _json_state(state):
+    return {k: {**v, "mask": v["mask"].astype(int).tolist()}
+            for k, v in state.items()}
+
+
+def phase_app(ctx):
+    """The app layer on the card: a ``ModelManager()`` (CUDA by default)
+    with SD1.5 at full width (random bf16 weights from seed 0) behind the
+    JSON HTTP server (``serve(..., port=0, block=False)``, in this process),
+    sent with images and masks as nested lists:
+
+    1. the spatial request of phase main (512^2, "DPM++ 2M Karras", 25
+       steps, CFG 7.5, the two-phrase map, short prompt mode) over HTTP, by
+       a direct ``inference()`` call and by ``StableDiffusionTorch.txt2img``
+       in turns, ``ROUNDS`` timed rounds after one warm-up: every POST must
+       return the same bytes, and its image must equal the other two paths'
+       bit for bit;
+    2. the same request as a job (``/jobs``, ``cancel_check_steps=5``),
+       polled to done (progress 25/25; its image equal to request 1's, since
+       the chunked path is bitwise the plain one), and a second job
+       cancelled while it waits in the queue;
+    3. 2-prompt x 2-seed grids at 512^2 with and without the map; each
+       sample of the unmapped grid is held to its single request within
+       the CPU tests' bound (rtol/atol 1e-3) on the sampler's fp32 output
+       (see the comment there for why not on bf16 uint8);
+    4. a hires request, 512^2 -> 1024^2, strength 0.6, in the app's default
+       "a1111" prompt mode (K2 at K3's shapes);
+    5. ``/warmup`` with the two 512^2 batch-1 configs of
+       ``default_warmup_configs("sd15")`` (with and without a map).
+
+    Each generating response's PNGs are decoded here and held to a direct
+    ``inference()`` call with the same arguments, bit for bit; the UNet
+    calls and K1/K2 launches of every request are exact, and ``timings``
+    holds the card's memory. Prints the HTTP p50 s/image beside the direct
+    ``inference()`` p50 and the pipeline's, the server's ``timings``
+    phases, and a profile of one HTTP request by its kernels."""
+    from diffusionspatialcontrol_tpu_torch import sd15_config
+    from diffusionspatialcontrol_tpu_torch.app import api
+    from diffusionspatialcontrol_tpu_torch.app.server import (
+        _inference_kwargs,
+    )
+    from diffusionspatialcontrol_tpu_torch.app.server import serve as http
+    from diffusionspatialcontrol_tpu_torch.parallel.batched import (
+        generate_grid,
+    )
+    from diffusionspatialcontrol_tpu_torch.pipeline.pipeline import to_uint8
+    from diffusionspatialcontrol_tpu_torch.runtime import native
+
+    if not native.available():
+        raise AssertionError("app: the native image codec did not build")
+    cfg = sd15_config()
+    t0 = time.perf_counter()
+    manager = api.ModelManager()
+    manager.register_random("sd15", cfg, seed=0)
+    _with_text_bias(manager._cache["sd15"], 0)
+    server = http(manager, port=0, block=False)
+    port = server.server_address[1]
+    log(f"app: ModelManager on {manager.device} with SD1.5 (bf16, random "
+        f"from seed 0) and the server on port {port} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    state = _masks(512, 512)
+    base = {"prompt": PROMPT, "neg_prompt": NEG, "model": "sd15",
+            "sampler": "DPM++ 2M Karras", "steps": STEPS, "cfg_scale": 7.5,
+            "width": 512, "height": 512, "seed": 0, "encoding_mode": "short",
+            "region_state": _json_state(state)}
+    spatial = want_launches(cfg, 512, STEPS, True, "xla")
+    t_phase = time.perf_counter()
+    # launches of the HTTP requests alone, for the kernels line: the direct
+    # calls they are checked against run between them and are not served
+    served = {}
+
+    def count(launches):
+        for k, v in launches.items():
+            served[k] = served.get(k, 0) + v
+
+    def post(what, path, payload, calls, want, n_images, side=512):
+        """One generating POST: status 200, exact UNet calls and launches,
+        n_images finite-looking PNGs of side^2; returns (uint8, body, s)."""
+        before = _counts()
+        torch.cuda.synchronize()
+        with UNetCalls() as n:
+            status, out, dt = _http(port, path, payload)
+        if status != 200:
+            raise AssertionError(f"app: {what}: HTTP {status} {out}")
+        launches = _delta(_counts(), before)
+        count(launches)
+        if n.n != calls or launches != want:
+            raise AssertionError(f"app: {what}: {n.n} UNet calls, launches "
+                                 f"{launches}; expected {calls}, {want}")
+        img = _pngs(out)
+        if img.shape != (n_images, side, side, 3):
+            raise AssertionError(f"app: {what}: images {img.shape}")
+        timings = json.loads(out["timings"])
+        if "hbm_in_use_mb" not in timings:
+            raise AssertionError(f"app: {what}: timings {timings}")
+        log(f"app: {what}: HTTP {dt:.3f} s, {n.n} UNet calls, launches "
+            f"{ {k: v for k, v in launches.items() if v} }, timings "
+            f"{timings}")
+        return img, out, dt
+
+    def direct(payload, what):
+        """``inference()`` on the server's parse of ``payload``; uint8."""
+        t = time.perf_counter()
+        images = api.inference(manager, **_inference_kwargs(payload))[
+            "images"]
+        dt = time.perf_counter() - t
+        if images.dtype != np.uint8:
+            raise AssertionError(f"app: {what}: direct images {images.dtype}")
+        return images, dt
+
+    def same(what, got, want):
+        if not np.array_equal(got, want):
+            raise AssertionError(
+                f"app: {what}: HTTP images differ from a direct inference() "
+                f"call (max abs {np.abs(got.astype(int) - want).max()})")
+
+    # 1. the spatial request over HTTP, by a direct inference() call and by
+    # the pipeline, in turns; the first round is each path's warm-up
+    pipe = api.StableDiffusionTorch(cfg, manager._cache["sd15"],
+                                    tokenizer=manager._tokenizers["sd15"])
+    c1, ids1 = pipe.encode_prompt([PROMPT], [NEG], clip_skip=2)
+    rb1 = pipe.encode_region([state], ids1, height=512, width=512)
+    gen = _gen_for("DPM++ 2M Karras", num_inference_steps=STEPS)
+    http_s, direct_s, pipe_s, raw = [], [], [], []
+    for i in range(ROUNDS + 1):
+        img, out, dt = post(f"spatial POST {i}", "/generate", base, STEPS,
+                            spatial, 1)
+        raw.append(out["images"][0])
+        want_img, dt_direct = direct(base, "spatial")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        u8 = to_uint8(pipe.txt2img(c1, gen, seed=0, region_biases=rb1)
+                      ).cpu().numpy()
+        dt_pipe = time.perf_counter() - t
+        same("spatial", img, want_img)
+        same("StableDiffusionTorch.txt2img", img, u8)
+        if i:
+            http_s.append(dt)
+            direct_s.append(dt_direct)
+            pipe_s.append(dt_pipe)
+    if len(set(raw[1:])) != 1:
+        raise AssertionError("app: identical POSTs returned other bytes")
+    p50 = {k: float(np.median(v)) for k, v in (
+        ("HTTP", http_s), ("inference()", direct_s), ("txt2img", pipe_s))}
+    log("app: spatial p50 s/image: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in p50.items())
+        + f" (HTTP over inference(): {p50['HTTP'] - p50['inference()']:+.4f}"
+        f" s; inference() over txt2img: "
+        f"{p50['inference()'] - p50['txt2img']:+.4f} s; card: "
+        f"{card_line()})")
+
+    # 2. a job with progress, and a job cancelled while queued
+    before = _counts()
+    status, job, _ = _http(port, "/jobs", {**base, "cancel_check_steps": 5})
+    status2, job2, _ = _http(port, "/jobs", base)
+    _, cancelled, _ = _http(port, f"/jobs/{job2['job_id']}/cancel", {})
+    if (status, status2) != (202, 202) or cancelled["status"] != "cancelled":
+        raise AssertionError(f"app: jobs {status} {status2} {cancelled}")
+    seen = set()
+    while True:
+        _, res, _ = _http(port, f"/jobs/{job['job_id']}")
+        seen.add(res["progress"]["done"])
+        if res["status"] in ("done", "error", "cancelled"):
+            break
+        time.sleep(0.05)
+    _, res2, _ = _http(port, f"/jobs/{job2['job_id']}")
+    if res["status"] != "done" or res["progress"] != {"done": STEPS,
+                                                       "total": STEPS}:
+        raise AssertionError(f"app: job ended {res['status']} "
+                             f"{res.get('error')} {res['progress']}")
+    if res2["status"] != "cancelled":
+        raise AssertionError(f"app: the cancelled job is {res2['status']}")
+    launches = _delta(_counts(), before)
+    count(launches)
+    if launches != spatial:
+        raise AssertionError(f"app: jobs launched {launches}, expected one "
+                             f"request's {spatial}")
+    same("job", _pngs(res), want_img)
+    log(f"app: job {job['job_id']} done, progress seen "
+        f"{sorted(seen)}; job {job2['job_id']} cancelled while queued")
+
+    # 3. 2-prompt x 2-seed grids over HTTP, with and without the map, each
+    # equal to a direct inference() call. The per-sample contract (a
+    # sample's draws are its single request's, so it differs from it only
+    # by rounding) is held with the CPU tests' bound, rtol/atol 1e-3, on
+    # the sampler's fp32 output (TF32 off) without a map: with the map a
+    # sample's bias strength takes its std over the whole batch, as the
+    # reference's qk.std() does, and the random decoder turns batch-size
+    # rounding into a few uint8 steps (ROADMAP section 3)
+    prompts = [PROMPT, "a blue bird flying over a red cat, a wooden bench"]
+    grid = {**base, "prompt": prompts, "seed": [0, 1]}
+    gimg, _, gdt = post("grid 2x2", "/generate", grid, STEPS, spatial, 4)
+    same("grid", gimg, direct(grid, "grid")[0])
+    coupled = int(np.abs(gimg[0].astype(int) - img[0]).max())
+    vanilla = want_launches(cfg, 512, STEPS, False, "xla")
+    vgrid = {**grid, "region_state": None}
+    vimg, _, vdt = post("grid 2x2 without a map", "/generate", vgrid, STEPS,
+                        vanilla, 4)
+    same("grid without a map", vimg, direct(vgrid, "grid")[0])
+    t = time.perf_counter()
+    gen32 = dataclasses.replace(gen, dtype=torch.float32)
+    lat4 = generate_grid(pipe, prompts, [0, 1], gen32, negative_prompt=NEG,
+                         decode=False)
+    err = 0.0
+    for p, prompt in enumerate(prompts):
+        ctx_p, _ = pipe.encode_prompt([prompt], [NEG], clip_skip=2)
+        for s, seed in enumerate((0, 1)):
+            lat1 = pipe.txt2img(ctx_p, gen32, seed=seed, decode=False)
+            err = max(err, check_close(
+                f"app: fp32 grid sample ({p}, {s})",
+                lat4[2 * p + s:2 * p + s + 1], lat1, rtol=1e-3, atol=1e-3))
+    log(f"app: grid 2x2 with the map {gdt:.3f} s ({gdt / 4:.3f} s/image; "
+        f"sample (0, 0) against its single request: max abs {coupled} on "
+        f"uint8), without {vdt:.3f} s; fp32 samples without the map within "
+        f"{err:.3g} of their single requests (bound 1e-3; checks in "
+        f"{time.perf_counter() - t:.1f} s)")
+
+    # 4. hires 512^2 -> 1024^2 in the app's default prompt mode
+    hires = {**base, "hires_scale": HIRES / 512, "hires_strength": 0.6}
+    del hires["encoding_mode"]
+    hires_steps = int(STEPS * 0.6)
+    himg, _, hdt = post("hires", "/generate", hires, STEPS + hires_steps,
+                        want_launches(cfg, 512, STEPS, True, "xla",
+                                      hires_steps), 1, side=HIRES)
+    same("hires", himg, direct(hires, "hires")[0])
+
+    # 5. /warmup with the 512^2 batch-1 buckets
+    configs = [dict(c) for c in api.default_warmup_configs("sd15")
+               if c["width"] == 512 and c["num_images_per_prompt"] == 1]
+    for c in configs:
+        if "region_state" in c:
+            c["region_state"] = _json_state(c["region_state"])
+    before = _counts()
+    with UNetCalls() as n:
+        status, out, wdt = _http(port, "/warmup", {"configs": configs})
+    launches = _delta(_counts(), before)
+    count(launches)
+    want = {k: v + vanilla[k] for k, v in spatial.items()}
+    if status != 200 or len(out["results"]) != 2 or n.n != 2 * STEPS \
+            or launches != want:
+        raise AssertionError(f"app: /warmup {status} {out}, {n.n} UNet "
+                             f"calls, launches {launches} (expected {want})")
+    log(f"app: /warmup of {len(configs)} configs in {wdt:.3f} s: "
+        f"{out['results']}")
+
+    for k, v in served.items():
+        ctx.setdefault("launches", {})[k] = ctx["launches"].get(k, 0) + v
+    log(f"app: launches of the HTTP requests "
+        f"{ {k: v for k, v in served.items() if v} }; requests served and checked in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    profile_request(lambda: torch.from_numpy(
+        _pngs(_http(port, "/generate", base)[1])), "app_http_spatial",
+        p50["HTTP"], host_ops=False)
+    server.shutdown()
+    server.server_close()
+    del pipe, manager
+    torch.cuda.empty_cache()
+
+
 KERNEL_GROUPS = (  # (group, test on the lower-cased kernel name)
     # both attention bodies carry HAS_BIAS among their template arguments
     ("K1", lambda n: "dsc::attention" in n and "true" in n),
@@ -1578,7 +1907,7 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     run = {"build": phase_build, "kernels": phase_kernels,
-           "tiny": phase_tiny, "main": phase_main}
+           "tiny": phase_tiny, "main": phase_main, "app": phase_app}
     t_all = time.perf_counter()
     for name in PHASES:
         if name not in phases:

@@ -2,8 +2,8 @@
 
 A copy of ``diffusionspatialcontrol_tpu/config.py``'s model configs and
 presets (SD1.5, its 9-channel and asymmetric-VAE inpaint variants, SD2.1
-with and without v-prediction, tiny), with ``GenerationConfig.dtype``
-holding a ``torch.dtype``. The JAX
+with and without v-prediction, tiny) and the server's ``MODEL_FAMILIES``,
+with ``GenerationConfig.dtype`` holding a ``torch.dtype``. The JAX
 package's module imports ``jax.numpy``, so the port keeps its own copy instead
 of importing it.
 
@@ -158,6 +158,15 @@ def tiny_config() -> ModelConfig:
         vae=VAEConfig(block_out_channels=(16, 32, 32, 32),
                       norm_num_groups=4),
     )
+
+
+# The presets the server's ``--random-model NAME:FAMILY`` takes.
+MODEL_FAMILIES = {
+    "sd15": sd15_config,
+    "sd15-inpaint": sd15_inpaint_config,
+    "tiny": tiny_config,
+    "sd21": sd21_config,
+}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -609,7 +609,7 @@ class StableDiffusionTorch:
                        batch_size: int = 1, chunk_steps: int = 8,
                        on_chunk=None, latents: Optional[torch.Tensor] = None,
                        decode: bool = True, uint8_output: bool = False,
-                       resume: Optional[ChunkedPause] = None):
+                       resume: Optional[ChunkedPause] = None, **unsupported):
         """txt2img that returns to the caller every ``chunk_steps`` solver
         steps: after each chunk it waits for the device and calls
         ``on_chunk(steps_done, steps_total)``, which may raise to cancel the
@@ -620,6 +620,7 @@ class StableDiffusionTorch:
         through, so the result is bitwise equal to ``txt2img``'s, paused or
         not. ``dpm_fast`` and ``dpm_adaptive`` have no fixed steps to slice
         and raise ``ValueError``."""
+        _check_unsupported(unsupported)
         if gen.sampler not in solvers.CHUNKABLE:
             raise ValueError(
                 f"solver {gen.sampler!r} does not support chunked execution "

@@ -32,6 +32,9 @@ from diffusionspatialcontrol_tpu_torch.ops import attention as tattn
 from diffusionspatialcontrol_tpu_torch.ops.kernels import flash_attention as k2
 from diffusionspatialcontrol_tpu_torch.ops.kernels import region_attention as k1
 
+# One intra-op thread per xdist worker: the workers share the CPU's cores.
+torch.set_num_threads(1)
+
 
 def _qkv(seed, b, l, s, h, d, dtype=np.float32):
     rng = np.random.default_rng(seed)

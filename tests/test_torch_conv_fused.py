@@ -31,6 +31,9 @@ from diffusionspatialcontrol_tpu_torch.ops.kernels import conv_fused as tconv
 
 from test_torch_vae import to_jax
 
+# One intra-op thread per xdist worker: the workers share the CPU's cores.
+torch.set_num_threads(1)
+
 _DT = {"fp32": (np.float32, jnp.float32, torch.float32),
        "bf16": (None, jnp.bfloat16, torch.bfloat16)}
 

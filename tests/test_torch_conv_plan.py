@@ -5,10 +5,14 @@ where the output tiles alone would not, each split takes its chunks once,
 and the split-K workspace stays within a stated bound."""
 
 import pytest
+import torch
 
 import chip_smoke
 from diffusionspatialcontrol_tpu_torch import sd15_config
 from diffusionspatialcontrol_tpu_torch.ops.kernels import conv_fused as kc
+
+# One intra-op thread per xdist worker: the workers share the CPU's cores.
+torch.set_num_threads(1)
 
 # fp32 partials of at most 2 * SMS blocks of 128 pixels x 128 channels: a
 # split launch has fewer than SMS tiles, each split into at most

@@ -31,6 +31,9 @@ from test_torch_inpaint import (
     make_pipes,
 )
 
+# One intra-op thread per xdist worker: the workers share the CPU's cores.
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def pipes():

@@ -24,8 +24,17 @@ from diffusionspatialcontrol_tpu_torch.pipeline.pipeline import (
     StableDiffusionTorch,
 )
 
+# One intra-op thread per xdist worker: the workers share the CPU's cores.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "diffusionspatialcontrol_tpu_torch"
+# the app layer's modules, each with its own copy of what it needs from the
+# JAX package's JAX-free modules (registry, region_ui, native,
+# preprocess.resize_nearest)
+APP_LAYER = tuple(f"diffusionspatialcontrol_tpu_torch.{m}" for m in (
+    "registry", "utils.profiling", "runtime.native", "app.api",
+    "parallel.batched", "utils.region_ui", "app.server"))
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -47,6 +56,7 @@ def test_importing_every_port_module_loads_no_jax():
                          check=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(result["modules"]) >= 20
+    assert set(APP_LAYER) <= set(result["modules"])
     assert result["loaded"] == []
 
 
@@ -89,3 +99,19 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax({"kernel": [[0.0]]})
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_app_entry_points_default_to_cuda_and_raise_without_it():
+    from diffusionspatialcontrol_tpu_torch.app import api, server
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.ModelManager()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    args = server.parse_args(["--random-model", "m:tiny"])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        server.build_manager_from_args(args)
+    assert api.ModelManager(device="cpu").device == torch.device("cpu")

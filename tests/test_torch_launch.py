@@ -15,6 +15,9 @@ from diffusionspatialcontrol_tpu_torch.ops.kernels._launch import (
     check_nlhd,
 )
 
+# One intra-op thread per xdist worker: the workers share the CPU's cores.
+torch.set_num_threads(1)
+
 
 def _projection(b, l, h, d, dtype):
     """(B, L, H, D) as the UNet makes it: a (B, L, H*D) linear's output

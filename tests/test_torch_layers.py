@@ -22,6 +22,9 @@ from diffusionspatialcontrol_tpu_torch.models import clip as tclip
 from diffusionspatialcontrol_tpu_torch.models import layers as tl
 from diffusionspatialcontrol_tpu_torch.models import vae as tvae
 
+# One intra-op thread per xdist worker: the workers share the CPU's cores.
+torch.set_num_threads(1)
+
 
 def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)

@@ -43,6 +43,9 @@ from diffusionspatialcontrol_tpu_torch.samplers import schedules as tsched
 from diffusionspatialcontrol_tpu_torch.samplers import solvers as tsolvers
 from diffusionspatialcontrol_tpu_torch.text import tokenizer as ttok
 
+# One intra-op thread per xdist worker: the workers share the CPU's cores.
+torch.set_num_threads(1)
+
 PROMPT = "a red cat sitting on a wooden bench, a blue bird flying"
 NEG = "bad quality, low quality, jpeg artifact, cropped"
 

@@ -25,6 +25,9 @@ from diffusionspatialcontrol_tpu_torch.text import encoder as tencoder
 from diffusionspatialcontrol_tpu_torch.text import prompt_parser as tpp
 from diffusionspatialcontrol_tpu_torch.text import tokenizer as ttok
 
+# One intra-op thread per xdist worker: the workers share the CPU's cores.
+torch.set_num_threads(1)
+
 GRAMMAR = [
     "normal text", "an (important) word", "(unbalanced", r"\(literal\]",
     "(unnecessary)(parens)",

@@ -28,6 +28,9 @@ from diffusionspatialcontrol_tpu_torch.text import tokenizer as ttok
 from test_torch_inpaint import NEG, PROMPT, _two_masks
 from test_torch_vae import to_jax
 
+# One intra-op thread per xdist worker: the workers share the CPU's cores.
+torch.set_num_threads(1)
+
 
 def _tiny_sd21(mod):
     cfg = mod.tiny_config()

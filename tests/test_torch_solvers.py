@@ -28,6 +28,9 @@ from diffusionspatialcontrol_tpu_torch import registry as tregistry
 from diffusionspatialcontrol_tpu_torch.samplers import schedules as tsched
 from diffusionspatialcontrol_tpu_torch.samplers import solvers as tsolvers
 
+# One intra-op thread per xdist worker: the workers share the CPU's cores.
+torch.set_num_threads(1)
+
 # dpm_adaptive sizes each try by the RMS of x_low - x_high over a bound
 # (about rtol |x|): a difference of two nearby fp32 results, so one ulp of
 # exp(-t) (XLA's against the C library's) moves the error by ~1e-4 relative

@@ -22,6 +22,9 @@ from diffusionspatialcontrol_tpu_torch.models import unet as tunet
 from diffusionspatialcontrol_tpu_torch.ops.kernels import flash_attention as k2
 from diffusionspatialcontrol_tpu_torch.ops.kernels import region_attention as k1
 
+# One intra-op thread per xdist worker: the workers share the CPU's cores.
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def unet_params():

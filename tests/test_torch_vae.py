@@ -28,6 +28,9 @@ from diffusionspatialcontrol_tpu_torch.convert.from_jax import params_from_jax
 from diffusionspatialcontrol_tpu_torch.models import vae as tvae
 from diffusionspatialcontrol_tpu_torch.ops.resize import resize_latents
 
+# One intra-op thread per xdist worker: the workers share the CPU's cores.
+torch.set_num_threads(1)
+
 PRESETS = [("sd15_inpaint_config", ()), ("sd15_asym_inpaint_config", (1.0,)),
            ("sd15_asym_inpaint_config", (1.5,)), ("sd21_config", (False,)),
            ("sd21_config", (True,)), ("sd15_config", ()),
