@@ -42,10 +42,14 @@ result line:
    ``encode_image`` then ``img2img`` (plain convs, and K5 through the
    encoder), inpaint on the 4-channel UNet (strength 1.0 and 0.75), on a
    9-channel UNet and with an asymmetric VAE, and an SD2.1-style model
-   (gelu CLIP, linear projections, v-prediction). The card's uint8
-   conversion must equal the JAX package's codec rounding bit for bit.
-   Launches are exact: 16 of K1 and K2 per UNet call, the calls counted at
-   the denoiser;
+   (gelu CLIP, linear projections, v-prediction); and the units:
+   ControlNets with random heads (one; two with keep windows and a
+   T2I-Adapter; guess mode; Heun with a window; img2img at strength 0.75;
+   hires with the units rebuilt at 128^2), each also required to move the
+   image. The card's uint8 conversion must equal the JAX package's codec
+   rounding bit for bit. Launches are exact: 16 of K1 and K2 per UNet
+   call, and 14 of K2 per ControlNet call, the calls counted at the
+   denoiser;
 4. main: SD1.5 at full width (random bf16 weights from a seed), the request
    ``bench.py`` times: 512^2, 25 DPM++ 2M steps on Karras sigmas, CFG 7.5,
    a two-phrase region map, VAE decode to uint8. It serves spatial requests
@@ -60,17 +64,24 @@ result line:
    (strength 0.8) and inpaint of its right half (4-channel blend), the
    same inpaint on ``sd15_inpaint_config()`` (9-channel UNet) and on
    ``sd15_asym_inpaint_config()`` (that UNet with the asymmetric VAE),
-   and txt2img on ``sd21_config()``, each model's weights freed before the
-   next loads. It checks every image, the UNet calls and the kernels'
+   and txt2img on ``sd21_config()``, each model's weights kept for its
+   profile; before those, the unit requests (``spatial_controlnet``: a
+   ControlNet with random heads; ``spatial_t2i``: the full T2I-Adapter;
+   ``hires_controlnet``: 512^2 -> 1024^2 with the ControlNet, K2 at
+   L = 16384 in both models; their denoiser calls may not read from the
+   card). It checks every image, the UNet calls and the kernels'
    exact launch counts, prints the p50 seconds per image of each request
    type after one warm-up, and profiles one request of most types by its
-   kernels (the spatial request also with the host's ops);
+   kernels (the spatial request also with the host's ops) at the end of
+   the run, after every phase's timed requests: a profile leaves the host
+   slower at launching for the rest of the process;
 5. app: the app layer on SD1.5 at full width: ``ModelManager()`` behind the
    JSON HTTP server, in this process. The spatial request over HTTP (the
    PNGs decoded here and held bit for bit to a direct ``inference()`` call
    and to the pipeline; repeated POSTs byte-identical), a job polled to
-   25/25 and one cancelled while queued, 2 x 2 grids, a hires request and
-   ``/warmup``, with exact UNet calls and launches; the HTTP, direct and
+   25/25 and one cancelled while queued, 2 x 2 grids, a hires request, a
+   ControlNet unit (zero heads: the spatial PNG bit for bit) and a
+   T2I-Adapter unit, and ``/warmup``, with exact UNet calls and launches; the HTTP, direct and
    pipeline p50s side by side, and one HTTP request profiled by its
    kernels.
 
@@ -738,7 +749,38 @@ def _tree_to(tree, device):
         return {k: _tree_to(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_tree_to(v, device) for v in tree]
-    return tree.to(device)
+    return None if tree is None else tree.to(device)
+
+
+def unit_controlnet(unet_cfg, seed: int, device, dtype, rms: float):
+    """A ControlNet from the port's init (generator ``seed`` on ``device``)
+    with its zero heads (the cond embedding's conv_out, the zero convs, the
+    mid zero conv) drawn at ``rms``: a fresh ControlNet's residuals are
+    exactly zero, so only random heads show its effect."""
+    from diffusionspatialcontrol_tpu_torch.models.controlnet import (
+        controlnet_init,
+    )
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    p = controlnet_init(g, unet_cfg, dtype=dtype, device=device)
+    heads = ([p["cond_embedding"]["conv_out"]] + p["zero_convs"]
+             + [p["mid_zero_conv"]])
+    for conv in heads:
+        for k in ("kernel", "bias"):
+            t = torch.randn(conv[k].shape, generator=g, device=device)
+            conv[k] = (rms * t).to(dtype).contiguous(
+                memory_format=torch.channels_last if t.dim() == 4
+                else torch.contiguous_format)
+    return p
+
+
+def cn_attentions(cfg) -> tuple:
+    """(attentions of one ControlNet call, of them at level 0): two a
+    transformer (self and cross) in its down blocks and its mid block."""
+    u = cfg.unet
+    per_level = u.layers_per_block * u.transformer_layers_per_block
+    n = per_level * sum(u.attn_levels) + u.transformer_layers_per_block
+    return 2 * n, per_level if u.attn_levels[0] else 0
 
 
 def _with_text_bias(params, seed: int):
@@ -777,6 +819,33 @@ class UNetCalls:
 
     def __exit__(self, *exc):
         self._mod.make_denoise_fn = self._orig
+
+
+class NoHostReads(UNetCalls):
+    """``UNetCalls`` that also runs every denoiser call under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host read of a device
+    value inside the denoiser (an ``.item()``, a 0-d tensor index, a copy
+    to the host) raises instead of stalling the host until the card
+    catches up."""
+
+    def __enter__(self):
+        super().__enter__()
+        counted_make = self._mod.make_denoise_fn
+
+        def strict_make(*args, **kwargs):
+            denoise = counted_make(*args, **kwargs)
+
+            def strict(x, sigma):
+                mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return denoise(x, sigma)
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+            return strict
+
+        self._mod.make_denoise_fn = strict_make
+        return self
 
 
 def _masks(h, w):
@@ -821,23 +890,27 @@ def _reset_counts():
 
 
 def want_launches(cfg, size, calls, spatial, conv_impl, hires_calls=0,
-                  text_s=TEXT, encodes=0):
+                  text_s=TEXT, encodes=0, controlnets=0):
     """The exact launches of one request: ``encodes`` VAE encodes of a
     ``size`` image, ``calls`` UNet calls at ``size``, then ``hires_calls``
     at twice the size, one decode at the last size, on a context of
-    ``text_s`` positions."""
+    ``text_s`` positions; each UNet call with ``controlnets`` ControlNet
+    calls, all of whose attentions (self and cross, no map) are K2's."""
     runs = [(size, calls)] + ([(2 * size, hires_calls)] if hires_calls
                               else [])
     n = calls + hires_calls
     level0 = (2 * size // 8) ** 2
+    cn_attn, cn_level0 = cn_attentions(cfg)
     want = {"K1": PER_UNET * n if spatial else 0,
-            "K2": PER_UNET * n * (1 if spatial else 2),
-            "K3": LEVELS[0][2] * hires_calls
+            "K2": PER_UNET * n * (1 if spatial else 2)
+            + cn_attn * controlnets * n,
+            "K3": (LEVELS[0][2] + cn_level0 * controlnets) * hires_calls
             if level0 == K3_SHAPES[0][0] else 0,
             "K4": 0, "K5": 0, "K4b": 0,
             f"K1 S={CHUNKED}": 0, f"K2 S={CHUNKED}": 0}
     if text_s == CHUNKED:
         want[f"K{1 if spatial else 2} S={CHUNKED}"] = PER_UNET * n
+        want[f"K2 S={CHUNKED}"] += cn_attn // 2 * controlnets * n
     if conv_impl in ("pallas", "pallas2"):
         fused = [sh for sz, k in runs
                  for sh in resnet_conv_shapes(cfg, sz, sz) * k
@@ -1060,6 +1133,7 @@ def phase_tiny(ctx):
             f"{u8_err} (uint8); {calls['cuda']} UNet calls, launches "
             f"{ {k: v for k, v in want.items() if v} }")
     tiny_images_in(ctx, cfg, on)
+    tiny_units(ctx, cfg, on)
 
 
 def _tiny_variants(cfg):
@@ -1191,6 +1265,140 @@ def tiny_images_in(ctx, cfg, on):
             f"{ {k: v for k, v in want.items() if v} }")
 
 
+TINY_HEAD_RMS = 0.05  # tiny fp32 ControlNets' random heads (residuals ~1)
+HEAD_RMS = 0.02  # SD1.5's: residuals that move the image, far from bf16's
+# overflow (their RMS is printed)
+
+
+def unit_extras(pipe, gen, spec, controlnets, adapter, image):
+    """A request's unit extras from ``spec``: {"cn": the ControlNets used,
+    "scales", "starts", "ends", "guess"; "t2i": the adapter's
+    conditioning factor}, every unit on ``image`` (B, H, W, 3) in [0, 1]."""
+    ex = None
+    n = spec.get("cn", 0)
+    if n:
+        ex = pipe.build_controlnet_extras(
+            gen, controlnets[:n], [image] * n,
+            scales=spec.get("scales", [1.0, 0.7])[:n],
+            starts=spec.get("starts"), ends=spec.get("ends"),
+            guess_mode=spec.get("guess", False))
+    if spec.get("t2i") is not None:
+        ex = pipe.build_t2i_extras(gen, [adapter], [image], scales=[1.0],
+                                   conditioning_factor=spec["t2i"], base=ex)
+    return ex
+
+
+def tiny_units(ctx, cfg, on):
+    """ControlNet and T2I-Adapter units at tiny size, fp32, card against
+    CPU with the same weights (ControlNets with random heads at
+    ``TINY_HEAD_RMS``; a random adapter), control image, latents and seeds,
+    all with the two-phrase map: one ControlNet; two ControlNets with keep
+    windows [0, 0.5) and [0.25, 1] and a T2I-Adapter active on the first
+    half of the steps; guess mode; Heun (its intermediate sigmas take the
+    nearest step's scale) with a window; img2img at strength 0.75 with a
+    ControlNet (the cut schedule reads the first columns of the per-step
+    tables); hires 64^2 -> 128^2 with a ControlNet and the adapter rebuilt
+    at 128^2 (``rebuild_extras``). Launches exact: K1 16 and K2 16 + 14 a
+    ControlNet per UNet call. Each image must also differ from the same
+    request without units on the card (the units are not idle).
+    Tolerances as in ``phase_tiny``."""
+    from diffusionspatialcontrol_tpu_torch import T2IAdapterConfig
+    from diffusionspatialcontrol_tpu_torch.models.t2i_adapter import (
+        t2i_adapter_init,
+    )
+    from diffusionspatialcontrol_tpu_torch.pipeline.pipeline import (
+        StableDiffusionTorch,
+    )
+    from diffusionspatialcontrol_tpu_torch.text.tokenizer import HashTokenizer
+
+    cpu, dev = torch.device("cpu"), ctx["device"]
+    cns = [unit_controlnet(cfg.unet, seed, cpu, torch.float32,
+                           TINY_HEAD_RMS) for seed in (1, 2)]
+    ad = t2i_adapter_init(torch.Generator().manual_seed(3), T2IAdapterConfig(
+        channels=cfg.unet.block_out_channels), torch.float32, cpu)
+    units = {"cpu": (cns, ad),
+             "cuda": ([_tree_to(c, dev) for c in cns], _tree_to(ad, dev))}
+    image = {side: torch.from_numpy(synthetic_image(side, 5) * 0.5 + 0.5)
+             for side in (64, 128)}
+    init = torch.from_numpy(synthetic_image(64, 0))
+    lat = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 8, 8, 4)).astype(np.float32))
+    cases = (  # (label, sampler name, request, unit spec)
+        ("controlnet", "DPM++ 2M Karras", "txt2img", {"cn": 1}),
+        ("two controlnets [0, 0.5) and [0.25, 1], T2I factor 0.5",
+         "DPM++ 2M Karras", "txt2img",
+         {"cn": 2, "starts": [0.0, 0.25], "ends": [0.5, 1.0], "t2i": 0.5}),
+        ("controlnet guess mode", "DPM++ 2M Karras", "txt2img",
+         {"cn": 1, "guess": True}),
+        ("Heun, controlnet [0.25, 1]", "Heun", "txt2img",
+         {"cn": 1, "starts": [0.25], "ends": [1.0]}),
+        ("img2img 0.75, controlnet [0, 0.5)", "DPM++ 2M Karras", "img2img",
+         {"cn": 1, "ends": [0.5]}),
+        ("hires 64^2 -> 128^2, controlnet and T2I rebuilt",
+         "DPM++ 2M Karras", "hires", {"cn": 1, "t2i": 1.0}))
+    for label, sampler, request, spec in cases:
+        gen = _gen_for(sampler, height=64, width=64, num_inference_steps=4,
+                       dtype=torch.float32)
+        out, calls, wants = {}, {}, {}
+        for kind in ("cpu", "cuda", "cuda without units"):
+            device = kind.split()[0]
+            pipe = StableDiffusionTorch(cfg, on[device],
+                                        tokenizer=HashTokenizer(),
+                                        device=device)
+            cn_k, ad_k = units[device]
+            c, ids = pipe.encode_prompt([PROMPT], [NEG])
+            rb = pipe.encode_region([_masks(64, 64)], ids, 64, 64)
+            ex = (None if kind == "cuda without units" else unit_extras(
+                pipe, gen, spec, cn_k, ad_k, image[64]))
+            before = _counts()
+            with UNetCalls() as n:
+                if request == "img2img":
+                    res = pipe.img2img(c, pipe.encode_image(init, seed=3),
+                                       gen, strength=0.75, seed=3,
+                                       region_biases=rb, extras=ex)
+                else:
+                    hires = None
+                    if request == "hires":
+                        hires = {"scale": 2.0, "strength": 0.6,
+                                 "region_state": ([_masks(64, 64)], ids, 1)}
+                        if ex is not None:
+                            hires["rebuild_extras"] = (
+                                lambda g, p=pipe, cn_k=cn_k, ad_k=ad_k:
+                                unit_extras(p, g, spec, cn_k, ad_k,
+                                            image[128]))
+                    res = pipe.txt2img(c, gen, latents=lat, region_biases=rb,
+                                       extras=ex, hires=hires)
+            got = _delta(_counts(), before)
+            calls[kind] = n.n
+            want = (want_launches(cfg, 64, n.n, True, "xla",
+                                  controlnets=0 if ex is None
+                                  else spec.get("cn", 0))
+                    if device == "cuda" else dict.fromkeys(got, 0))
+            if got != want:
+                raise AssertionError(f"tiny {label} on {kind}: launches "
+                                     f"{got}, expected {want}")
+            out[kind], wants[kind] = res.cpu(), want
+        if len(set(calls.values())) != 1:
+            raise AssertionError(f"tiny {label}: UNet calls {calls}")
+        side = 128 if request == "hires" else 64
+        if out["cuda"].shape != (1, side, side, 3):
+            raise AssertionError(f"tiny {label}: image {out['cuda'].shape}")
+        err = check_close(f"tiny {label}", out["cuda"], out["cpu"], 0.0, 2e-4)
+        u8 = [StableDiffusionTorch.to_uint8(out[k]).int()
+              for k in ("cuda", "cpu")]
+        u8_err = int((u8[0] - u8[1]).abs().max())
+        if u8_err > 1:
+            raise AssertionError(f"tiny {label}: uint8 differs by {u8_err}")
+        moved = float((out["cuda"] - out["cuda without units"]).abs().max())
+        if moved < 1e-3:
+            raise AssertionError(f"tiny {label}: the units moved the image "
+                                 f"by {moved:.2e} only")
+        log(f"tiny: {label} ({gen.sampler}, {request}): card vs CPU max abs "
+            f"err {err:.2e} (fp32), {u8_err} (uint8); the units move the "
+            f"image by {moved:.3f}; {calls['cuda']} UNet calls, launches "
+            f"{ {k: v for k, v in wants['cuda'].items() if v} }")
+
+
 def phase_main(ctx):
     from diffusionspatialcontrol_tpu_torch import GenerationConfig, sd15_config
     from diffusionspatialcontrol_tpu_torch.models.factory import (
@@ -1294,20 +1502,20 @@ def phase_main(ctx):
             ("spatial_a1111", "xla", gen_sde, ca, rba, None),
             ("vanilla_long_heun", "xla", gen_heun, cl, None, None)):
         for host_ops in (True, False) if kind == "spatial" else (False,):
-            profile_request(
-                lambda p=pipes[conv_impl], gen_=gen_, ctx_=ctx_, rb=rb,
+            defer_profile(
+                ctx, lambda p=pipes[conv_impl], gen_=gen_, ctx_=ctx_, rb=rb,
                 opts=opts: p.txt2img(ctx_, gen_, seed=99, region_biases=rb,
                                      hires=opts),
-                kind, ctx["p50"][kind], host_ops=host_ops)
-    profile_request(
-        lambda: pipe.img2img(c1, pipe.encode_image(init, seed=99), gen,
-                             strength=0.8, seed=99, region_biases=rb1),
-        "img2img_spatial", ctx["p50"]["img2img_spatial"], host_ops=False)
-    profile_request(
-        lambda: pipe.inpaint(c1, init, mask, gen, strength=1.0, seed=99,
-                             region_biases=rb1),
-        "inpaint_spatial", ctx["p50"]["inpaint_spatial"], host_ops=False)
-    del pipes, pipe, params
+                kind, host_ops=host_ops)
+    defer_profile(
+        ctx, lambda: pipe.img2img(c1, pipe.encode_image(init, seed=99), gen,
+                                  strength=0.8, seed=99, region_biases=rb1),
+        "img2img_spatial")
+    defer_profile(
+        ctx, lambda: pipe.inpaint(c1, init, mask, gen, strength=1.0,
+                                  seed=99, region_biases=rb1),
+        "inpaint_spatial")
+    main_units(ctx, pipe, cfg, gen, c1, rb1, ids1, state)
     main_other_models(ctx, gen, state, init, mask)
 
     log("main: p50 s/image after one warm-up: " + ", ".join(
@@ -1319,13 +1527,111 @@ def phase_main(ctx):
         raise AssertionError("main: a kernel of the path never launched")
 
 
-def serve(ctx, kind, run, seeds, calls, want, side):
+def main_units(ctx, pipe, cfg, gen, c1, rb1, ids1, state):
+    """ControlNet and T2I-Adapter requests on SD1.5 at full width, the
+    spatial request's settings: ``spatial_controlnet`` (one ControlNet with
+    random heads at ``HEAD_RMS``, scale 1.0), ``spatial_t2i`` (the full
+    adapter, 320/640/1280/1280, scale 1.0, its weights bf16 and run in fp32
+    on the fp32 image, as in the JAX package) and ``hires_controlnet``
+    (512^2 -> 1024^2, strength 0.6, the control image refitted to 1024^2 for
+    the hires pass as the app does: K2 at L = 16384 in the UNet and in the
+    ControlNet), on a synthetic 512^2 control image made with numpy from a
+    seed. Exact launches (the ControlNet's 14 attentions a call are all
+    K2's), finite images that differ from the spatial request's, and the
+    residuals' RMS on a first step's input; each profiled once by its
+    kernels (at the end of the run). Their denoiser calls run under
+    ``NoHostReads``: the per-step scales are gathered on the card."""
+    from diffusionspatialcontrol_tpu_torch import T2IAdapterConfig
+    from diffusionspatialcontrol_tpu_torch.app.api import _fit_unit_image
+    from diffusionspatialcontrol_tpu_torch.models.controlnet import (
+        controlnet_apply,
+        controlnet_cond_embedding,
+    )
+    from diffusionspatialcontrol_tpu_torch.models.factory import param_count
+    from diffusionspatialcontrol_tpu_torch.models.t2i_adapter import (
+        t2i_adapter_init,
+    )
+    from diffusionspatialcontrol_tpu_torch.pipeline.pipeline import to_uint8
+
+    dev = pipe.device
+    t0 = time.perf_counter()
+    cn = unit_controlnet(cfg.unet, 1, dev, torch.bfloat16, HEAD_RMS)
+    ad = t2i_adapter_init(torch.Generator(device=dev).manual_seed(2),
+                          T2IAdapterConfig(
+                              channels=cfg.unet.block_out_channels),
+                          torch.bfloat16, dev)
+    size = gen.height  # 512
+    image = synthetic_image(size, 7) * 0.5 + 0.5
+    image_hr = _fit_unit_image(image[0], HIRES, HIRES)[None]
+    torch.cuda.synchronize()
+    log(f"main: a ControlNet ({param_count(cn) / 1e6:.1f} M parameters, "
+        f"heads at RMS {HEAD_RMS}) and a T2I-Adapter "
+        f"({param_count(ad) / 1e6:.1f} M), bf16, random from seeds 1 and 2, "
+        f"in {time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(2, size // 8, size // 8, 4, generator=g,
+                    device=dev).bfloat16()
+    emb = controlnet_cond_embedding(
+        cn, torch.from_numpy(image).to(dev).repeat(2, 1, 1, 1),
+        torch.bfloat16)
+    down, mid = controlnet_apply(
+        cn, cfg.unet, x, torch.full((2,), 999.0, device=dev),
+        c1.bfloat16(), emb)
+    res_rms = [rms(r) for r in down + (mid,)]
+    if not all(np.isfinite(res_rms)) or max(res_rms) > 1e3:
+        raise AssertionError(f"main: ControlNet residual RMS {res_rms}")
+    log(f"main: ControlNet residuals on a first step's input: RMS "
+        f"{min(res_rms):.3f} to {max(res_rms):.3f} (12 down and the mid)")
+
+    def cn_extras(g_, side=size):
+        return pipe.build_controlnet_extras(
+            g_, [cn], [image if side == size else image_hr], scales=[1.0])
+
+    def t2i_extras(g_):
+        return pipe.build_t2i_extras(g_, [ad], [image], scales=[1.0])
+
+    hires = {"scale": HIRES / size, "strength": 0.6,
+             "region_state": ([state], ids1, 1),
+             "rebuild_extras": lambda g_: cn_extras(g_, HIRES)}
+    hires_steps = int(STEPS * hires["strength"])
+    runs = {
+        "spatial_controlnet": lambda seed: pipe.txt2img(
+            c1, gen, seed=seed, region_biases=rb1, extras=cn_extras(gen)),
+        "spatial_t2i": lambda seed: pipe.txt2img(
+            c1, gen, seed=seed, region_biases=rb1, extras=t2i_extras(gen)),
+        "hires_controlnet": lambda seed: pipe.txt2img(
+            c1, gen, seed=seed, region_biases=rb1, extras=cn_extras(gen),
+            hires=hires),
+    }
+    for kind, seeds, hr, n_cn in (
+            ("spatial_controlnet", [0, 1, 2, 3, 4], 0, 1),
+            ("spatial_t2i", [0, 1, 2, 3, 4], 0, 0),
+            ("hires_controlnet", [0, 1, 2], hires_steps, 1)):
+        serve(ctx, kind, runs[kind], seeds, STEPS + hr,
+              want_launches(cfg, size, STEPS, True, "xla", hr,
+                            controlnets=n_cn), HIRES if hr else size,
+              strict=True)
+    plain = to_uint8(pipe.txt2img(c1, gen, seed=0, region_biases=rb1)).cpu()
+    for kind in ("spatial_controlnet", "spatial_t2i"):
+        moved = int((to_uint8(runs[kind](0)).cpu().int() - plain.int()).abs()
+                    .max())
+        if moved == 0:
+            raise AssertionError(f"main: {kind} gave the spatial image")
+        log(f"main: {kind} seed 0 against spatial seed 0: max abs {moved} "
+            f"on uint8")
+    for kind in runs:
+        defer_profile(ctx, lambda k=kind: runs[k](99), kind)
+
+
+def serve(ctx, kind, run, seeds, calls, want, side, strict=False):
     """Serve ``run(seed)`` (fp32 images) once a seed, the first request a
     warm-up, each followed by the uint8 copy to the host. Checks each
     request's UNet calls, exact launches and images; records the p50
-    seconds per image of the timed ones. The launch counts are set to 0
-    before the first request and read after the last: ``ctx["launches"]``
-    sums them over the request types, the main path's launches."""
+    seconds per image of the timed ones. ``strict``: the denoiser's calls
+    may not read from the card (``NoHostReads``). The launch counts are set
+    to 0 before the first request and read after the last:
+    ``ctx["launches"]`` sums them over the request types, the main path's
+    launches."""
     from diffusionspatialcontrol_tpu_torch.pipeline.pipeline import to_uint8
 
     _reset_counts()
@@ -1336,7 +1642,7 @@ def serve(ctx, kind, run, seeds, calls, want, side):
         before = _counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with UNetCalls() as n:
+        with (NoHostReads() if strict else UNetCalls()) as n:
             img = run(seed)
             u8 = to_uint8(img).cpu()
         dt = time.perf_counter() - t0
@@ -1375,14 +1681,14 @@ def serve(ctx, kind, run, seeds, calls, want, side):
 
 def main_other_models(ctx, gen, state, init, mask):
     """The requests of the other presets at full width, each model's random
-    bf16 weights (seed 0) freed before the next loads:
+    bf16 weights (seed 0) kept for the profiles at the end of the run:
     ``sd15_inpaint_config()`` (9-channel UNet) inpainting the SD1.5
     requests' init image and mask; the same UNet with the asymmetric VAE
     of ``sd15_asym_inpaint_config()``; and ``sd21_config()`` (the app's
     SD2.1 zoo model: OpenCLIP-width gelu text encoder, linear projections,
     K1/K2 at D = 64 with 5/10/20 heads) serving txt2img with the map. Each
-    profiled once by its kernels. Every one at 512^2, 25 DPM++ 2M Karras
-    steps, CFG 7.5, the two-phrase map."""
+    profiled once by its kernels, at the end of the run. Every one at
+    512^2, 25 DPM++ 2M Karras steps, CFG 7.5, the two-phrase map."""
     from diffusionspatialcontrol_tpu_torch import (
         sd15_asym_inpaint_config,
         sd15_inpaint_config,
@@ -1418,22 +1724,20 @@ def main_other_models(ctx, gen, state, init, mask):
     pipe, c, rb = load(cfg9, params, "sd15_inpaint_config")
     serve(ctx, "inpaint9_spatial", inpaint(pipe, c, rb), NEW_SEEDS, STEPS,
           want, 512)
-    profile_request(lambda: inpaint(pipe, c, rb)(99), "inpaint9_spatial",
-                    ctx["p50"]["inpaint9_spatial"], host_ops=False)
+    # the defaults bind this model: pipe, c and rb are rebound below
+    defer_profile(ctx, lambda p=pipe, c=c, rb=rb: inpaint(p, c, rb)(99),
+                  "inpaint9_spatial")
     cfga = sd15_asym_inpaint_config()
     dev = pipe.device
-    del pipe
-    params["vae"] = None  # free the 9-channel model's VAE first
-    params["vae"] = vae_init(torch.Generator(device=dev).manual_seed(0),
-                             cfga.vae, torch.bfloat16, dev)
+    params = dict(params, vae=vae_init(  # the 9-channel UNet, a new VAE
+        torch.Generator(device=dev).manual_seed(0), cfga.vae, torch.bfloat16,
+        dev))
     pipe, c, rb = load(cfga, params, "sd15_asym_inpaint_config (the "
                                      "9-channel UNet, an asymmetric VAE)")
     serve(ctx, "inpaint_asym", inpaint(pipe, c, rb), NEW_SEEDS, STEPS, want,
           512)
-    profile_request(lambda: inpaint(pipe, c, rb)(99), "inpaint_asym",
-                    ctx["p50"]["inpaint_asym"], host_ops=False)
-    del pipe, params
-    torch.cuda.empty_cache()
+    defer_profile(ctx, lambda p=pipe, c=c, rb=rb: inpaint(p, c, rb)(99),
+                  "inpaint_asym")
     cfg21 = sd21_config()
     params = init_pipeline_params(0, cfg21, torch.bfloat16)
     pipe, c, rb = load(cfg21, params, "sd21_config")
@@ -1441,11 +1745,8 @@ def main_other_models(ctx, gen, state, init, mask):
           lambda seed: pipe.txt2img(c, gen, seed=seed, region_biases=rb),
           NEW_SEEDS, STEPS, want_launches(cfg21, 512, STEPS, True, "xla"),
           512)
-    profile_request(
-        lambda: pipe.txt2img(c, gen, seed=99, region_biases=rb),
-        "sd21_spatial", ctx["p50"]["sd21_spatial"], host_ops=False)
-    del pipe, params
-    torch.cuda.empty_cache()
+    defer_profile(ctx, lambda p=pipe, c=c, rb=rb: p.txt2img(
+        c, gen, seed=99, region_biases=rb), "sd21_spatial")
 
 
 def decode_png(data: bytes) -> np.ndarray:
@@ -1529,7 +1830,11 @@ def phase_app(ctx):
        (see the comment there for why not on bf16 uint8);
     4. a hires request, 512^2 -> 1024^2, strength 0.6, in the app's default
        "a1111" prompt mode (K2 at K3's shapes);
-    5. ``/warmup`` with the two 512^2 batch-1 configs of
+    5. the spatial request with a ControlNet unit ("Canny": zero heads, so
+       its PNG must equal request 1's bit for bit; K2 + 350) and with a
+       T2I-Adapter unit (random: finite and another image), each on a
+       256^2 uint8 control image sent as a nested list;
+    6. ``/warmup`` with the two 512^2 batch-1 configs of
        ``default_warmup_configs("sd15")`` (with and without a map).
 
     Each generating response's PNGs are decoded here and held to a direct
@@ -1728,7 +2033,33 @@ def phase_app(ctx):
                                       hires_steps), 1, side=HIRES)
     same("hires", himg, direct(hires, "hires")[0])
 
-    # 5. /warmup with the 512^2 batch-1 buckets
+    # 5. units: a ControlNet by name (zero heads: the spatial request's
+    # image bit for bit, with its 14 attentions a step on K2) and a
+    # T2I-Adapter by name (random weights: another image), each with a
+    # 256^2 uint8 control image that the app fits to 512^2
+    unit_img = (synthetic_image(256, 7)[0] * 127.5 + 127.5).astype(
+        np.uint8).tolist()
+    cn_post = {**base, "controlnet_units": [{"model": "Canny",
+                                             "image": unit_img}]}
+    cimg, _, cdt = post("ControlNet unit (zero heads)", "/generate", cn_post,
+                        STEPS, want_launches(cfg, 512, STEPS, True, "xla",
+                                             controlnets=1), 1)
+    if not np.array_equal(cimg, want_img):
+        raise AssertionError(
+            f"app: a zero-head ControlNet changed the spatial image (max abs "
+            f"{np.abs(cimg.astype(int) - want_img).max()})")
+    t2i_post = {**base, "t2i_units": [{"model": "Sketch", "image": unit_img}]}
+    timg, _, tdt = post("T2I-Adapter unit", "/generate", t2i_post, STEPS,
+                        spatial, 1)
+    if np.array_equal(timg, want_img):
+        raise AssertionError("app: the T2I-Adapter unit left the spatial "
+                             "image as it was")
+    log(f"app: ControlNet unit {cdt:.3f} s, its PNG the spatial request's "
+        f"bit for bit; T2I-Adapter unit {tdt:.3f} s, max abs "
+        f"{np.abs(timg.astype(int) - want_img).max()} from the spatial "
+        f"image on uint8")
+
+    # 6. /warmup with the 512^2 batch-1 buckets
     configs = [dict(c) for c in api.default_warmup_configs("sd15")
                if c["width"] == 512 and c["num_images_per_prompt"] == 1]
     for c in configs:
@@ -1772,6 +2103,39 @@ KERNEL_GROUPS = (  # (group, test on the lower-cased kernel name)
     ("norm", lambda n: "norm" in n),
     ("other", lambda n: True),
 )
+
+
+def defer_profile(ctx, run, kind, host_ops=False):
+    """Queue a ``profile_request`` of ``run`` for the end of the run, beside
+    the p50 that ``serve`` records for ``kind``. A torch.profiler run (with
+    the host's ops most of all) leaves the host slower at launching for the
+    rest of the process (PERF.md), so every timed request comes before the
+    first profile."""
+    ctx.setdefault("profiles", []).append((run, kind, host_ops))
+
+
+def run_deferred_profiles(ctx):
+    """The queued profiles; then the first profiled request type is timed
+    again (p50 of 4 after a warm-up) beside its p50 from before them: the
+    profiler's after-effect on the host."""
+    from diffusionspatialcontrol_tpu_torch.pipeline.pipeline import to_uint8
+
+    profiles = ctx.pop("profiles", [])
+    t0 = time.perf_counter()
+    for run, kind, host_ops in profiles:
+        profile_request(run, kind, ctx["p50"][kind], host_ops=host_ops)
+    log(f"profiles: {len(profiles)} requests profiled in "
+        f"{time.perf_counter() - t0:.1f} s")
+    run, kind, _ = profiles[0]
+    seconds = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        to_uint8(run()).cpu()
+        seconds.append(time.perf_counter() - t0)
+    log(f"profiles: {kind} timed again after them: p50 "
+        f"{np.median(seconds[1:]):.4f} s/image against "
+        f"{ctx['p50'][kind]:.4f} before the first profile")
 
 
 def profile_request(run, kind, p50_s, host_ops=True):
@@ -1918,6 +2282,10 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         log(f"phase {name}: ok in {time.perf_counter() - t0:.1f} s "
             f"({time.perf_counter() - t_all:.1f} s since the start)")
+    if ctx.get("profiles"):
+        with torch.inference_mode():
+            run_deferred_profiles(ctx)
+        torch.cuda.synchronize()
     if phases != list(PHASES):
         log("chip_smoke: not every phase ran; no result line")
         return 0

@@ -9,8 +9,10 @@ hand-written CUDA kernel under ``csrc/`` built with ``nvcc`` at first use
 
 from .config import (  # noqa: F401
     CLIPTextConfig,
+    ControlNetConfig,
     GenerationConfig,
     ModelConfig,
+    T2IAdapterConfig,
     UNetConfig,
     VAEConfig,
     sd15_asym_inpaint_config,

@@ -6,22 +6,29 @@ device; ``inference()`` takes the app's whole parameter surface (prompt and
 negative, model, sampler name of the app's table, steps, CFG, size, seeds,
 region-map state, img2img / inpaint, hires fix, clip-skip, prompt mode,
 latent previews, the timeout watchdog, chunked and cancellable runs,
-multi-prompt grids) and routes it to ``StableDiffusionTorch`` as the JAX
-package routes it to ``StableDiffusionTPU``, with every check in the same
-order, so that a request the JAX package refuses gets the same error here.
+multi-prompt grids, ControlNet and T2I-Adapter units) and routes it to
+``StableDiffusionTorch`` as the JAX package routes it to
+``StableDiffusionTPU``, with every check in the same order, so that a
+request the JAX package refuses gets the same error here.
+
+A unit's model name that is not an existing path gets random weights from
+the port's own generator (seed 0): a ControlNet with zero heads (a no-op,
+as in the JAX package) and a random T2I-Adapter (other values than the JAX
+package's ``PRNGKey(0)`` init).
 
 Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item where the JAX package would first use them: ControlNet and
-T2I-Adapter units (item 15), IP-Adapter units, the CLIP-vision encoder and
-the face models (item 16), loading checkpoints, LoRAs and textual-inversion
-embeddings (item 17), the speed modes cfg-tail, DeepCache, bottleneck and
-TGATE (item 18) and the control preprocessors (item 20). The unit
-dataclasses are ported as data, so that the server parses them.
+ROADMAP item where the JAX package would first use them: IP-Adapter units,
+the CLIP-vision encoder and the face models (item 16), loading
+checkpoints, unit weights from disk, LoRAs and textual-inversion embeddings
+(item 17), the speed modes cfg-tail, DeepCache, bottleneck and TGATE (item
+18) and the control preprocessors (item 20). The IP-Adapter unit
+dataclass is ported as data, so that the server parses it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
@@ -33,16 +40,19 @@ from ..config import (
     DEFAULT_NEGATIVE_PROMPT,
     GenerationConfig,
     ModelConfig,
+    T2IAdapterConfig,
     sd15_config,
     sd21_config,
 )
 from ..device import resolve_device
 from ..models import factory
-from ..pipeline.pipeline import StableDiffusionTorch
+from ..models.controlnet import controlnet_init
+from ..models.t2i_adapter import t2i_adapter_init
+from ..ops.resize import resize_latents
+from ..pipeline.pipeline import DenoiseExtras, StableDiffusionTorch
 from ..text.tokenizer import load_tokenizer
 from ..utils.profiling import PhaseTimer, Watchdog
 
-_UNITS = "ControlNet and T2I-Adapter units (ROADMAP item 15)"
 _IP = "IP-Adapter (ROADMAP item 16)"
 _LOADING = ("loading checkpoints, LoRAs and textual-inversion embeddings "
             "(ROADMAP item 17)")
@@ -57,7 +67,7 @@ def _not_ported(what: str) -> NotImplementedError:
 @dataclasses.dataclass
 class ControlNetUnit:
     """One ControlNet unit (reference multi-unit editor,
-    source/app.py:924-997). Data only until ROADMAP item 15."""
+    source/app.py:924-997)."""
 
     model: str  # name in registry.CONTROLNET_MODELS or a path
     image: np.ndarray  # (H, W, 3) conditioning image in [0, 1]
@@ -65,6 +75,8 @@ class ControlNetUnit:
     guidance_start: float = 0.0
     guidance_end: float = 1.0
     guess_mode: bool = False
+    # a detector applied to ``image`` first, with its options (ROADMAP
+    # item 20)
     preprocessor: Optional[str] = None
     preprocessor_options: Optional[dict] = None
 
@@ -72,7 +84,7 @@ class ControlNetUnit:
 @dataclasses.dataclass
 class T2IAdapterUnit:
     """One T2I-Adapter unit (reference multi-unit editor,
-    source/app.py:654-700, 989-997). Data only until ROADMAP item 15."""
+    source/app.py:654-700, 989-997)."""
 
     model: str  # name in registry.T2I_ADAPTER_MODELS or a weight path
     image: np.ndarray  # (H, W, 3) conditioning image in [0, 1]
@@ -118,6 +130,8 @@ class ModelManager:
         self._dirs: Dict[str, Tuple[str, ModelConfig]] = {}
         self._cache: Dict[str, Dict[str, Any]] = {}
         self._tokenizers: Dict[str, Any] = {}
+        self._controlnets: Dict[str, Dict[str, Any]] = {}
+        self._adapters: Dict[str, Dict[str, Any]] = {}
 
     def register(self, name: str, path: str,
                  model_cfg: Optional[ModelConfig] = None):
@@ -172,11 +186,34 @@ class ModelManager:
             raise _not_ported(_LOADING)
         return cfg, base_params, base_tok
 
+    def _generator(self) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(0)
+
     def get_controlnet(self, name_or_path: str, unet_cfg):
-        raise _not_ported(_UNITS)
+        """ControlNet parameters for a unit, cached by name. A name that is
+        not an existing path gets a random trunk with zero heads (a no-op);
+        converting weights from a path waits for ROADMAP item 17."""
+        if name_or_path not in self._controlnets:
+            if os.path.exists(name_or_path):
+                raise _not_ported(_LOADING)
+            self._controlnets[name_or_path] = controlnet_init(
+                self._generator(), unet_cfg, dtype=self.dtype,
+                device=self.device)
+        return self._controlnets[name_or_path]
 
     def get_t2i_adapter(self, name_or_path: str, unet_cfg=None):
-        raise _not_ported(_UNITS)
+        """T2I-Adapter parameters for a unit, cached by name: random, with
+        the UNet's level widths (the SD1.5 adapter without ``unet_cfg``),
+        for a name that is not an existing path; weights from a path wait
+        for ROADMAP item 17."""
+        if name_or_path not in self._adapters:
+            if os.path.exists(name_or_path):
+                raise _not_ported(_LOADING)
+            cfg = (T2IAdapterConfig(channels=unet_cfg.block_out_channels)
+                   if unet_cfg is not None else T2IAdapterConfig())
+            self._adapters[name_or_path] = t2i_adapter_init(
+                self._generator(), cfg, dtype=self.dtype, device=self.device)
+        return self._adapters[name_or_path]
 
     def get_ip_adapter_state(self, name_or_path: str, unet_cfg):
         raise _not_ported(_IP)
@@ -244,7 +281,7 @@ def inference(
     hires_sampler: Optional[str] = None,  # sampler for the hires pass only
     hires_region: bool = True,  # region control in the hires pass (the
     # map is re-encoded at the target size)
-    # conditioning units (ROADMAP items 15-16)
+    # conditioning units (IP-Adapter: ROADMAP item 16)
     controlnet_units: Sequence[ControlNetUnit] = (),
     t2i_units: Sequence[T2IAdapterUnit] = (),
     ip_adapter_units: Sequence[IPAdapterUnit] = (),
@@ -376,10 +413,77 @@ def inference(
                 )
         watchdog.check()
 
-    extras = None
+    # one conditioning image serves every generated sample: the whole grid
+    # in grid mode, the num_images_per_prompt fan-out otherwise
+    unit_fan = (
+        len(grid_prompts) * len(grid_seeds)
+        if grid_prompts is not None
+        else num_images_per_prompt
+    )
+    extras: Optional[DenoiseExtras] = None
+    cn_params = cn_imgs_raw = t2i_params = t2i_imgs_raw = None
     with timer.phase("conditioning"):
+        if controlnet_units:
+            cn_params = [
+                manager.get_controlnet(u.model, model_cfg.unet)
+                for u in controlnet_units
+            ]
+            cn_imgs_raw = [
+                _maybe_preprocess(manager, u) for u in controlnet_units
+            ]
+        if t2i_units:
+            t2i_params = [
+                manager.get_t2i_adapter(u.model, model_cfg.unet)
+                for u in t2i_units
+            ]
+            t2i_imgs_raw = [
+                _maybe_preprocess(manager, u) for u in t2i_units
+            ]
+
+        def build_unit_extras(gen_for):
+            """The units' extras at gen_for's size. ControlNet images and
+            T2I residuals are bound to the resolution, so the hires pass
+            calls this again with its own config."""
+            ex = None
+            if controlnet_units:
+                imgs = [
+                    _unit_batch(
+                        _fit_unit_image(im, gen_for.height, gen_for.width),
+                        unit_fan,
+                    )
+                    for im in cn_imgs_raw
+                ]
+                ex = pipe.build_controlnet_extras(
+                    gen_for, cn_params, imgs,
+                    do_cfg=cfg_scale > 1.0,
+                    scales=[u.scale for u in controlnet_units],
+                    starts=[u.guidance_start for u in controlnet_units],
+                    ends=[u.guidance_end for u in controlnet_units],
+                    guess_mode=any(u.guess_mode for u in controlnet_units),
+                )
+            if t2i_units:
+                # the residuals are computed once a generation and active
+                # while step < steps * factor
+                imgs = [
+                    _unit_batch(
+                        _fit_unit_image(im, gen_for.height, gen_for.width),
+                        unit_fan,
+                    )
+                    for im in t2i_imgs_raw
+                ]
+                ex = pipe.build_t2i_extras(
+                    gen_for, t2i_params, imgs,
+                    do_cfg=cfg_scale > 1.0,
+                    scales=[u.scale for u in t2i_units],
+                    conditioning_factor=min(
+                        u.conditioning_factor for u in t2i_units
+                    ),
+                    base=ex,
+                )
+            return ex
+
         if controlnet_units or t2i_units:
-            raise _not_ported(_UNITS)
+            extras = build_unit_extras(gen)
     watchdog.check()
 
     if grid_prompts is not None:
@@ -442,6 +546,8 @@ def inference(
             hires["region_state"] = (
                 [region_state], ids, num_images_per_prompt
             )
+        if controlnet_units or t2i_units:
+            hires["rebuild_extras"] = build_unit_extras
 
     batch = num_images_per_prompt
     turbo_modes = {
@@ -648,6 +754,41 @@ def warmup(manager: ModelManager, configs) -> list:
             },
         })
     return results
+
+
+def _maybe_preprocess(manager: ModelManager, unit) -> np.ndarray:
+    """A unit's image in [0, 1]: uint8 maps are divided by 255. A
+    ``preprocessor`` goes to ``manager.get_preprocessor`` (ROADMAP item
+    20)."""
+    if unit.preprocessor:
+        fn = manager.get_preprocessor(unit.preprocessor)
+        opts = getattr(unit, "preprocessor_options", None)
+        return fn(unit.image, **opts) if opts else fn(unit.image)
+    img = np.asarray(unit.image)
+    if img.dtype == np.uint8:
+        img = img.astype(np.float32) / 255.0
+    return img
+
+
+def _fit_unit_image(img, h: int, w: int) -> torch.Tensor:
+    """A unit image (H, W, C), or (H, W) given a channel axis, resized to
+    the generation size as ``jax.image.resize(..., "bilinear")`` does, its
+    default antialiasing included (a control image larger than the request
+    is shrunk with a widened kernel); fp32 on the host."""
+    arr = torch.as_tensor(np.asarray(img, np.float32))
+    if arr.dim() == 2:
+        arr = arr[..., None]
+    if arr.shape[0] == h and arr.shape[1] == w:
+        return arr
+    return resize_latents(arr[None], h, w, mode="bilinear",
+                          antialias=True)[0]
+
+
+def _unit_batch(img, n: int) -> torch.Tensor:
+    """(H, W, C) unit image -> (n, H, W, C): one conditioning image serves
+    the whole fan-out."""
+    arr = torch.as_tensor(img, dtype=torch.float32)[None]
+    return torch.repeat_interleave(arr, n, dim=0) if n > 1 else arr
 
 
 def _to_pm1(img: np.ndarray) -> np.ndarray:

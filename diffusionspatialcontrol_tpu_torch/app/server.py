@@ -21,7 +21,8 @@ A stdlib HTTP server exposing ``app.api.inference`` as JSON endpoints:
   GET  /health
 
 ``/preprocessors`` and ``/preprocess`` answer 501 until the control
-preprocessors are ported (ROADMAP item 20). One worker thread owns the
+preprocessors are ported (ROADMAP item 20), as does a ControlNet or
+T2I-Adapter unit that names a ``preprocessor``. One worker thread owns the
 device: ``/generate``, ``/warmup`` and the job queue share one lock, so
 requests run one at a time in arrival order. A request that fails answers
 an error (400 for a caller's mistake, 501 for a path not ported yet, 500

@@ -1,7 +1,7 @@
 """Typed model/pipeline configuration (PyTorch port).
 
-A copy of ``diffusionspatialcontrol_tpu/config.py``'s model configs and
-presets (SD1.5, its 9-channel and asymmetric-VAE inpaint variants, SD2.1
+A copy of ``diffusionspatialcontrol_tpu/config.py``'s model configs (the
+ControlNet and T2I-Adapter ones among them) and presets (SD1.5, its 9-channel and asymmetric-VAE inpaint variants, SD2.1
 with and without v-prediction, tiny) and the server's ``MODEL_FAMILIES``,
 with ``GenerationConfig.dtype`` holding a ``torch.dtype``. The JAX
 package's module imports ``jax.numpy``, so the port keeps its own copy instead
@@ -89,6 +89,25 @@ class VAEConfig:
     @property
     def scale_factor(self) -> int:
         return 2 ** (len(self.block_out_channels) - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class ControlNetConfig:
+    """ControlNet encoder copy + zero-conv heads (SD1.5 ControlNet v1.1 family)."""
+
+    conditioning_channels: int = 3
+    conditioning_embedding_out_channels: Tuple[int, ...] = (16, 32, 96, 256)
+    # The trunk mirrors the UNet's down path; reuse UNetConfig for it.
+
+
+@dataclasses.dataclass(frozen=True)
+class T2IAdapterConfig:
+    """TencentARC T2I-Adapter (full_adapter variant for SD1.5)."""
+
+    in_channels: int = 3
+    channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    num_res_blocks: int = 2
+    downscale_factor: int = 8
 
 
 @dataclasses.dataclass(frozen=True)

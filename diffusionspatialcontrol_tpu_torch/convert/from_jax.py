@@ -6,7 +6,8 @@ Structure and names are kept; layouts change where PyTorch's differ:
 
 * a conv ``kernel`` (4-d) goes from HWIO to OIHW (stored ``channels_last``);
 * a linear ``kernel`` (2-d) goes from (in, out) to (out, in);
-* everything else (embeddings, norm scales, biases) is copied as it is.
+* everything else (embeddings, norm scales, biases) is copied as it is;
+* a ``None`` leaf stays ``None`` (a T2I-Adapter level without ``in_conv``).
 """
 
 from __future__ import annotations
@@ -42,4 +43,6 @@ def params_from_jax(tree: Any, dtype: Optional[torch.dtype] = None,
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_jax(v, dtype, device, "") for v in tree]
+    if tree is None:
+        return None
     return _leaf(_name, np.asarray(tree), dtype, device)

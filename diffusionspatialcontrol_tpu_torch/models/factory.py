@@ -37,6 +37,9 @@ def init_pipeline_params(generator: Union[int, torch.Generator],
 
 
 def param_count(params) -> int:
+    """Elements in a parameter tree (a ``None`` leaf counts none)."""
+    if params is None:
+        return 0
     if isinstance(params, torch.Tensor):
         return params.numel()
     items = params.values() if isinstance(params, dict) else params

@@ -60,11 +60,16 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
 
 def conv_init(generator: torch.Generator, in_channels: int,
               out_channels: int, kernel_size: int = 3,
-              dtype=torch.bfloat16, device=None):
-    fan_in = in_channels * kernel_size * kernel_size
-    kernel = _uniform(generator,
-                      (out_channels, in_channels, kernel_size, kernel_size),
-                      1.0 / math.sqrt(fan_in), dtype, device)
+              dtype=torch.bfloat16, device=None, zero: bool = False):
+    """U(+-1/sqrt(fan_in)) kernel (all zero with ``zero``, which draws
+    nothing), zero bias."""
+    shape = (out_channels, in_channels, kernel_size, kernel_size)
+    if zero:
+        kernel = torch.zeros(shape, dtype=dtype, device=device)
+    else:
+        fan_in = in_channels * kernel_size * kernel_size
+        kernel = _uniform(generator, shape, 1.0 / math.sqrt(fan_in), dtype,
+                          device)
     return {"kernel": kernel.contiguous(memory_format=torch.channels_last),
             "bias": torch.zeros(out_channels, dtype=dtype, device=device)}
 

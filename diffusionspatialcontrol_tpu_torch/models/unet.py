@@ -17,10 +17,11 @@ CUDA tensors.
 
 The SD1.x (conv projections, quick_gelu CLIP) and SD2.x (linear
 projections, 64-wide heads) topologies and the 9-channel inpaint UNet
-(``in_channels=9``) run here.
+(``in_channels=9``) run here, with ControlNet and T2I-Adapter residuals
+added where the JAX package adds them (``UNetCond``).
 
-Not ported yet (passing them raises): FreeU, ControlNet and T2I residuals,
-IP-Adapter, heatmaps, TGATE caching and DeepCache.
+Not ported yet (passing them raises): FreeU, IP-Adapter, heatmaps, TGATE
+caching and DeepCache.
 """
 
 from __future__ import annotations
@@ -66,6 +67,12 @@ class UNetCond:
 
     context: torch.Tensor  # (B, S, cross_dim) text embeddings
     region: Optional[RegionState] = None
+    # ControlNet: one residual a skip (12 for SD1.5, conv_in's included)
+    # and one for the mid block, NHWC, already scaled.
+    controlnet_down: Optional[Tuple[torch.Tensor, ...]] = None
+    controlnet_mid: Optional[torch.Tensor] = None
+    # T2I-Adapter: one residual a down block, NHWC.
+    t2i_residuals: Optional[Tuple[torch.Tensor, ...]] = None
 
 
 # ---------------------------------------------------------------------------
@@ -314,12 +321,17 @@ def unet_apply(params: Dict[str, Any], cfg: UNetConfig,
                cond: UNetCond, attn_impl: str = "pallas",
                conv_impl: Optional[str] = None, **unsupported):
     """UNet forward: sample (B, H, W, C) NHWC, timesteps (B,) possibly
-    fractional. Returns the eps / v prediction (B, H, W, out_channels)."""
+    fractional. Returns the eps / v prediction (B, H, W, out_channels).
+
+    ``cond``'s T2I residuals are added after the last layer of each down
+    block (before its downsample, so the skip carries them), its ControlNet
+    residuals to every skip after the down path and after the mid block's
+    second resnet, each cast to the activations' dtype at the add."""
     if unsupported and any(v not in (None, False)
                            for v in unsupported.values()):
         raise NotImplementedError(
-            f"not ported yet: {sorted(unsupported)} (FreeU, ControlNet, "
-            f"T2I, IP-Adapter, DeepCache, TGATE and heatmaps come later)")
+            f"not ported yet: {sorted(unsupported)} (FreeU, IP-Adapter, "
+            f"DeepCache, TGATE and heatmaps come later)")
     conv_impl = check_conv_impl(conv_impl)
     flash_opts = flash_options(attn_impl)
     groups, eps_ = cfg.norm_num_groups, cfg.norm_eps
@@ -338,17 +350,24 @@ def unet_apply(params: Dict[str, Any], cfg: UNetConfig,
 
     h = conv2d(params["conv_in"], sample)
     skips = [h]
+    t2i = list(cond.t2i_residuals or ())
     for level, block in enumerate(params["down_blocks"]):
-        for j in range(len(block["resnets"])):
+        n_res = len(block["resnets"])
+        for j in range(n_res):
             h = _resnet_apply(block["resnets"][j], h, groups, eps_,
                               next(t_it), conv_impl)
             if block["attentions"]:
                 h = _transformer_apply(block["attentions"][j], cfg, h, cond,
                                        level, cfg.heads_at(level), flash_opts)
+            if j == n_res - 1 and t2i:
+                h = h + t2i.pop(0).to(h.dtype)
             skips.append(h)
         if "downsample" in block:
             h = conv2d(block["downsample"], h, stride=2)
             skips.append(h)
+    if cond.controlnet_down is not None:
+        skips = [s + r.to(s.dtype)
+                 for s, r in zip(skips, cond.controlnet_down)]
 
     mid = params["mid_block"]
     top = cfg.num_levels - 1
@@ -358,6 +377,8 @@ def unet_apply(params: Dict[str, Any], cfg: UNetConfig,
                            cfg.heads_at(top), flash_opts)
     h = _resnet_apply(mid["resnet2"], h, groups, eps_, next(t_it),
                       conv_impl)
+    if cond.controlnet_mid is not None:
+        h = h + cond.controlnet_mid.to(h.dtype)
 
     for i, block in enumerate(params["up_blocks"]):
         level = cfg.num_levels - 1 - i

@@ -35,9 +35,10 @@ def generate_grid(
     """Generate len(prompts) * len(seeds) images: prompt-major order.
 
     Each prompt is encoded once and tiled across its seeds.
-    ``negative_prompt`` may be a per-prompt list. ``extras`` must already be
-    batched to the whole prompts x seeds fan-out (the port has no
-    conditioning units yet, so ``api.inference`` passes None).
+    ``negative_prompt`` may be a per-prompt list. ``extras`` (ControlNet
+    and T2I-Adapter units) must already be batched to the whole prompts x
+    seeds fan-out, as ``api.inference`` builds them; they go to
+    ``txt2img`` or ``img2img`` as they are.
 
     ``init_images``: optional per-prompt init images (each (H, W, 3) in
     [-1, 1]), the batched img2img path. Each (prompt, seed) sample's init

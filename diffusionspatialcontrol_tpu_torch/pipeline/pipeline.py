@@ -1,5 +1,6 @@
-"""txt2img, img2img and inpaint with region control, hires fix and chunked
-sampling (port of ``pipeline/pipeline.py``).
+"""txt2img, img2img and inpaint with region control, ControlNet and
+T2I-Adapter units, hires fix and chunked sampling (port of
+``pipeline/pipeline.py``).
 
 ``StableDiffusionTorch`` is the counterpart of ``StableDiffusionTPU``:
 prompt encoding in the three modes, region encoding, the sigma-space
@@ -8,11 +9,13 @@ the four schedules, VAE encode and decode and uint8 conversion; img2img
 from images (``encode_image`` then ``img2img``); inpaint on 4-channel
 UNets (the known region blended back at every denoiser call) and on
 9-channel inpaint UNets (mask and masked-image latents as extra input
-channels), with the asymmetric VAE's mask-conditioned decode; hires fix
-(latent upscale, then img2img on the latents at the target size,
-optionally with another sampler and schedule); per-step latent history;
-and ``sample_chunked``, which returns to the caller between chunks of
-steps to report progress, cancel or pause.
+channels), with the asymmetric VAE's mask-conditioned decode; ControlNet
+and T2I-Adapter units (``build_controlnet_extras``, ``build_t2i_extras``,
+then ``extras=`` on every sampling method); hires fix (latent upscale, then
+img2img on the latents at the target size, optionally with another sampler
+and schedule, the units' inputs rebuilt at that size); per-step latent
+history; and ``sample_chunked``, which returns to the caller between chunks
+of steps to report progress, cancel or pause.
 
 Math parity notes (as in the JAX package):
   * initial latents are scaled by (sigma_0^2 + 1)^0.5;
@@ -42,9 +45,15 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..config import GenerationConfig, ModelConfig
+from ..config import GenerationConfig, ModelConfig, T2IAdapterConfig
 from ..device import resolve_device
+from ..models.controlnet import (
+    check_input_channels,
+    controlnet_apply,
+    controlnet_cond_embedding,
+)
 from ..models.layers import check_conv_impl
+from ..models.t2i_adapter import multi_adapter_apply
 from ..models.unet import RegionState, UNetCond, flash_options, unet_apply
 from ..models.vae import vae_decode, vae_encode
 from ..ops.resize import resize_latents
@@ -75,6 +84,17 @@ def _sigma_to_t(sigma: torch.Tensor, log_sigma_table: torch.Tensor
     return torch.clamp(t, 0.0, float(n - 1)).reshape(())
 
 
+def controlnet_keep_schedule(steps: int, starts: Sequence[float],
+                             ends: Sequence[float]) -> np.ndarray:
+    """(n_units, steps) keep mask: 1 where the step lies inside the unit's
+    [start, end) fraction of the run (diffusers' formula)."""
+    keeps = np.zeros((len(starts), steps), np.float32)
+    for u, (s, e) in enumerate(zip(starts, ends)):
+        for i in range(steps):
+            keeps[u, i] = 1.0 - float(i / steps < s or (i + 1) / steps > e)
+    return keeps
+
+
 def _interleave_cfg(a: torch.Tensor) -> torch.Tensor:
     """[u0..uB, c0..cB] -> [u0, c0, u1, c1, ...] (the JAX package's CFG
     layout; per-sample outputs do not depend on batch order)."""
@@ -85,11 +105,19 @@ def _interleave_cfg(a: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass
 class DenoiseExtras:
-    """The denoiser's inpaint inputs (the JAX package's ``DenoiseExtras``
-    also carries ControlNet, T2I-Adapter and IP-Adapter inputs, which are
-    not ported). ``extra_channels`` is CFG-doubled ([uncond..., cond...])
-    when guidance is on."""
+    """Per-generation conditioning the denoiser consumes: ControlNet and
+    T2I-Adapter units and the inpaint inputs (the JAX package's class also
+    carries IP-Adapter inputs, ROADMAP item 16). Tensors are CFG-doubled
+    ([uncond..., cond...]) where guidance needs it."""
 
+    # ControlNet: parallel lists over units
+    controlnet_params: Optional[List[Any]] = None
+    controlnet_images: Optional[List[torch.Tensor]] = None  # (B_cfg, H, W, 3)
+    controlnet_scales: Optional[np.ndarray] = None  # (n_units, n_steps)
+    controlnet_guess: bool = False
+    # T2I-Adapter: the residuals, computed once (CFG-doubled)
+    t2i_residuals: Optional[Tuple[torch.Tensor, ...]] = None
+    t2i_active: Optional[np.ndarray] = None  # (n_steps,) 0/1
     # 4-channel inpaint blend
     inpaint_mask: Optional[torch.Tensor] = None  # (B, h, w, 1), 1 = regenerate
     inpaint_image_latents: Optional[torch.Tensor] = None  # (B, h, w, 4)
@@ -110,6 +138,7 @@ def make_denoise_fn(
     compute_dtype=torch.bfloat16,
     conv_impl: str = "xla",
     extras: Optional[DenoiseExtras] = None,
+    sigma_steps: Optional[np.ndarray] = None,
 ):
     """The sigma-space denoiser D(x; sigma); sigma is a 0-d fp32 tensor.
 
@@ -117,12 +146,34 @@ def make_denoise_fn(
     the known region back into x, ``m x + (1 - m)(image_latents + sigma
     noise)``, before the CFG duplication; with ``extra_channels``, they are
     appended to the UNet's input after the c_in scaling, in the compute
-    dtype."""
+    dtype.
+
+    ``extras`` (units): each call takes the step index of sigma, the
+    nearest entry of ``sigma_steps`` (the sampled schedule's sigmas without
+    the last; a second-order solver's intermediate sigma lands on the
+    nearest step), and gathers the units' per-step scales there on the
+    device (``index_select``: no host read, so the host launches on while
+    the card runs). Every ControlNet runs on the scaled
+    latents (never a 9-channel UNet's extra channels) and the context; in
+    guess mode with CFG only on the cond rows, its residuals interleaved
+    with zeros. The units' residuals are summed in fp32 and rounded once at
+    the add into the UNet. The cond embedding of each ControlNet's image
+    depends on the image and the weights only, so it is computed once here
+    (``controlnet_cond_embedding``), not at every call."""
     do_cfg = guidance_scale > 1.0
     ex = extras or DenoiseExtras()
+    dev = log_sigma_table.device
     context = context.to(compute_dtype)
+    cfg_batch = context.shape[0]
+
+    def _maybe(a):
+        """The CFG interleave of a CFG-doubled tensor."""
+        if do_cfg and a is not None and a.shape[0] == cfg_batch:
+            return _interleave_cfg(a)
+        return a
+
     extra = (None if ex.extra_channels is None
-             else ex.extra_channels.to(compute_dtype))
+             else _maybe(ex.extra_channels.to(compute_dtype)))
     if region_biases is not None and region_biases[0].shape[-1] != \
             context.shape[1]:
         raise ValueError(
@@ -132,11 +183,44 @@ def make_denoise_fn(
             f"a context of 77 n, so its ids cannot build a map (nor can they "
             f"in the JAX package)")
     if do_cfg:
-        if extra is not None and extra.shape[0] == context.shape[0]:
-            extra = _interleave_cfg(extra)
         context = _interleave_cfg(context)
         if region_biases is not None:
             region_biases = tuple(_interleave_cfg(b) for b in region_biases)
+    guess = ex.controlnet_guess and do_cfg
+    units = []  # (params, cond embedding, scale row) per ControlNet
+    if ex.controlnet_params is not None:
+        scale_tab = torch.tensor(np.asarray(ex.controlnet_scales, np.float32),
+                                 device=dev)
+        for u, (cn_p, img) in enumerate(zip(ex.controlnet_params,
+                                            ex.controlnet_images)):
+            check_input_channels(cn_p, model_cfg.unet.out_channels)
+            img = _maybe(img.to(dev))
+            if guess and img.shape[0] == cfg_batch:
+                img = img[1::2]  # the cond rows
+            units.append((cn_p, controlnet_cond_embedding(cn_p, img,
+                                                          compute_dtype),
+                          scale_tab[u]))
+    t2i = None
+    if ex.t2i_residuals is not None:
+        t2i = (tuple(_maybe(r) for r in ex.t2i_residuals),
+               torch.tensor(np.asarray(ex.t2i_active, np.float32),
+                            device=dev))
+    sig_steps = None
+    if units or t2i:
+        if sigma_steps is None:
+            raise ValueError("ControlNet/T2I extras need sigma_steps (the "
+                             "sampled schedule) for their per-step scales")
+        sig_steps = torch.tensor(np.asarray(sigma_steps, np.float32),
+                                 device=dev)
+
+    def _at(table, i):
+        """``table[i]`` for a 0-d index tensor on the device: a gather, as
+        indexing with a 0-d tensor reads the index on the host."""
+        return table.index_select(0, i.reshape(1)).reshape(())
+
+    def _zero_interleave(r):
+        return torch.stack([torch.zeros_like(r), r], dim=1).reshape(
+            (-1,) + tuple(r.shape[1:]))
 
     def denoise(x, sigma):
         if ex.inpaint_mask is not None:
@@ -148,13 +232,37 @@ def make_denoise_fn(
         c_in = 1.0 / torch.sqrt(sigma ** 2 + 1.0)
         t = _sigma_to_t(sigma, log_sigma_table)
         t_b = t.expand(x_in.shape[0])
-        model_in = (x_in * c_in).to(compute_dtype)
+        scaled_in = (x_in * c_in).to(compute_dtype)
+        model_in = scaled_in
         if extra is not None:
             model_in = torch.cat([model_in, extra], dim=-1)
         region = (None if region_biases is None
                   else RegionState(region_biases, sigma))
-        out = unet_apply(params["unet"], model_cfg.unet, model_in, t_b,
-                         UNetCond(context=context, region=region),
+        cond = UNetCond(context=context, region=region)
+        if sig_steps is not None:
+            idx = torch.argmin(torch.abs(sig_steps - sigma))
+        for cn_p, emb, scales in units:
+            if guess:
+                d_res, m_res = controlnet_apply(
+                    cn_p, model_cfg.unet, scaled_in[1::2], t_b[1::2],
+                    context[1::2], emb, conditioning_scale=_at(scales, idx),
+                    guess_mode=True)
+                d_res = tuple(_zero_interleave(r) for r in d_res)
+                m_res = _zero_interleave(m_res)
+            else:
+                d_res, m_res = controlnet_apply(
+                    cn_p, model_cfg.unet, scaled_in, t_b, context, emb,
+                    conditioning_scale=_at(scales, idx))
+            if cond.controlnet_down is None:
+                cond.controlnet_down, cond.controlnet_mid = d_res, m_res
+            else:
+                cond.controlnet_down = tuple(
+                    a + b for a, b in zip(cond.controlnet_down, d_res))
+                cond.controlnet_mid = cond.controlnet_mid + m_res
+        if t2i is not None:
+            active = _at(t2i[1], idx)
+            cond.t2i_residuals = tuple(r.float() * active for r in t2i[0])
+        out = unet_apply(params["unet"], model_cfg.unet, model_in, t_b, cond,
                          attn_impl=attn_impl, conv_impl=conv_impl).float()
         if model_cfg.prediction_type == "v_prediction":
             c_skip = 1.0 / (sigma ** 2 + 1.0)
@@ -231,20 +339,6 @@ def _next_seed(seed: SeedT) -> SeedT:
     if isinstance(seed, (list, tuple, np.ndarray)):
         return [int(s) + 1 for s in seed]
     return int(seed) + 1
-
-
-def _check_hires(hires: dict) -> None:
-    """Raise on the hires options the port does not take yet."""
-    if hires.get("rebuild_extras") is not None:
-        raise NotImplementedError(
-            "hires['rebuild_extras'] is not ported yet (no extras are)")
-
-
-def _check_unsupported(unsupported: dict) -> None:
-    if any(v not in (None, False) for v in unsupported.values()):
-        raise NotImplementedError(
-            f"not ported yet: {sorted(unsupported)} (extras come with later "
-            f"slices)")
 
 
 @dataclasses.dataclass
@@ -325,6 +419,63 @@ class StableDiffusionTorch:
             num_images_per_prompt=num_images_per_prompt, do_cfg=do_cfg,
             device=self.device)
 
+    # -- conditioning units -------------------------------------------------
+
+    def build_controlnet_extras(
+        self, gen: GenerationConfig, controlnet_params: Sequence,
+        cond_images: Sequence[torch.Tensor], scales: Sequence[float],
+        starts: Optional[Sequence[float]] = None,
+        ends: Optional[Sequence[float]] = None, guess_mode: bool = False,
+        do_cfg: bool = True) -> DenoiseExtras:
+        """ControlNet units: each image (B, H, W, 3) in [0, 1] at the
+        request's size, moved to the device in fp32 and, with CFG and not in
+        guess mode, doubled for the uncond half; a (units, steps) table of
+        each unit's scale inside its [start, end) window, 0 outside."""
+        n = len(controlnet_params)
+        starts = list(starts or [0.0] * n)
+        ends = list(ends or [1.0] * n)
+        keeps = controlnet_keep_schedule(gen.num_inference_steps, starts,
+                                         ends)
+        imgs = []
+        for img in cond_images:
+            img = torch.as_tensor(img, dtype=torch.float32,
+                                  device=self.device)
+            if do_cfg and not guess_mode:
+                img = torch.cat([img, img], dim=0)
+            imgs.append(img)
+        return DenoiseExtras(
+            controlnet_params=list(controlnet_params),
+            controlnet_images=imgs,
+            controlnet_scales=keeps * np.asarray(scales, np.float32)[:, None],
+            controlnet_guess=guess_mode)
+
+    @torch.inference_mode()
+    def build_t2i_extras(
+        self, gen: GenerationConfig, adapter_params: Sequence,
+        cond_images: Sequence[torch.Tensor], scales: Sequence[float],
+        conditioning_factor: float = 1.0, do_cfg: bool = True,
+        base: Optional[DenoiseExtras] = None,
+        adapter_cfg: Optional[T2IAdapterConfig] = None) -> DenoiseExtras:
+        """T2I-Adapter units: the adapters run once, here, in fp32 on the
+        fp32 images (their weights cast up), and their scaled sum is kept
+        (CFG-doubled with guidance); the residuals are active on the steps
+        before ``int(steps * conditioning_factor)``. ``base``: extras to add
+        them to (a request's ControlNet units)."""
+        if adapter_cfg is None:  # the trunk's widths mirror the UNet's
+            adapter_cfg = T2IAdapterConfig(
+                channels=self.model_cfg.unet.block_out_channels)
+        feats = multi_adapter_apply(
+            adapter_params, adapter_cfg,
+            [torch.as_tensor(i, dtype=torch.float32, device=self.device)
+             for i in cond_images], scales)
+        if do_cfg:
+            feats = tuple(torch.cat([f, f], dim=0) for f in feats)
+        steps = gen.num_inference_steps
+        active = (np.arange(steps) < int(steps * conditioning_factor)
+                  ).astype(np.float32)
+        return dataclasses.replace(base or DenoiseExtras(),
+                                   t2i_residuals=feats, t2i_active=active)
+
     # -- sampling -----------------------------------------------------------
 
     def _schedule(self, gen: GenerationConfig):
@@ -364,12 +515,13 @@ class StableDiffusionTorch:
             opts["eta"] = gen.eta
         return opts
 
-    def _denoiser(self, context, region_biases, gen, extras=None):
+    def _denoiser(self, context, region_biases, gen, sigmas, extras=None):
         return make_denoise_fn(
             self.params, self.model_cfg, context.to(self.device),
             region_biases, self.log_sigma_table, gen.guidance_scale,
             gen.guidance_rescale, self.attn_impl, compute_dtype=gen.dtype,
-            conv_impl=self.conv_impl, extras=extras)
+            conv_impl=self.conv_impl, extras=extras,
+            sigma_steps=sigmas[:-1])
 
     def _decode(self, x, uint8_output, cond_image=None, cond_mask=None):
         images = vae_decode(self.params["vae"], self.model_cfg.vae, x,
@@ -380,7 +532,8 @@ class StableDiffusionTorch:
     def _sample(self, x, context, region_biases, sigmas, gen, noise, decode,
                 uint8_output, return_history=False, extras=None):
         solver_fn, _, defaults = solvers.SOLVERS[gen.sampler]
-        res = solver_fn(self._denoiser(context, region_biases, gen, extras),
+        res = solver_fn(self._denoiser(context, region_biases, gen, sigmas,
+                                       extras),
                         x, sigmas, noise=noise,
                         return_history=return_history,
                         **self._solver_opts(gen, defaults))
@@ -411,8 +564,9 @@ class StableDiffusionTorch:
     def txt2img(self, context: torch.Tensor, gen: GenerationConfig,
                 seed: SeedT = 0, region_biases=None, batch_size: int = 1,
                 decode: bool = True, latents: Optional[torch.Tensor] = None,
-                uint8_output: bool = False, hires: Optional[dict] = None,
-                return_history: bool = False, **unsupported):
+                extras: Optional[DenoiseExtras] = None,
+                hires: Optional[dict] = None, return_history: bool = False,
+                uint8_output: bool = False):
         """txt2img on a pre-encoded context. Returns images (B, H, W, 3),
         fp32 in [-1, 1] (uint8 with ``uint8_output``), or the final latents
         with ``decode=False``. ``gen.sampler`` names a solver of
@@ -424,29 +578,32 @@ class StableDiffusionTorch:
         ``latents``: (B, h, w, 4) standard-normal initial latents to use
         instead of the seeded draw; they are scaled by sqrt(sigma_0^2+1).
         The solver noise comes from the seeds either way.
+        ``extras``: the units' inputs (``build_controlnet_extras``,
+        ``build_t2i_extras``).
 
         ``hires``: optional dict(scale=2.0, strength=0.6, steps=None,
         mode="bilinear", antialias=False, sampler=None, schedule=None,
-        region_state=None), as in the JAX package: the base pass's latents
-        are resized by ``scale`` (modes of ``ops.resize``) and refined by
-        ``img2img`` at the target size, with the seed ``_next_seed(seed)``
-        and, where given, another solver and schedule. ``region_state`` =
-        (states, prompt ids, num_images_per_prompt) re-encodes the region
-        map at the target size; without it the hires pass runs without
-        region control. The ``uint8_output`` flag applies to the hires
-        pass's images.
+        region_state=None, rebuild_extras=None), as in the JAX package: the
+        base pass's latents are resized by ``scale`` (modes of
+        ``ops.resize``) and refined by ``img2img`` at the target size, with
+        the seed ``_next_seed(seed)`` and, where given, another solver and
+        schedule. ``region_state`` = (states, prompt ids,
+        num_images_per_prompt) re-encodes the region map at the target
+        size; without it the hires pass runs without region control. The
+        units' images and residuals are bound to the base size:
+        ``rebuild_extras`` = fn(the hires pass's GenerationConfig) ->
+        ``DenoiseExtras`` rebuilds them for the hires pass, and unit extras
+        without it raise ``ValueError``. The ``uint8_output`` flag applies
+        to the hires pass's images.
 
         ``return_history``: also return the latents after every step,
         (n_steps, B, h, w, 4); with hires, ``(images, [base history, hires
         history])``."""
-        _check_unsupported(unsupported)
-        if hires is not None:
-            _check_hires(hires)
         sigmas, _ = self._schedule(gen)
         x, noise = self._init(gen, sigmas, seed, batch_size, latents)
         out = self._sample(x, context, region_biases, sigmas, gen, noise,
                            decode and hires is None, uint8_output,
-                           return_history)
+                           return_history, extras)
         if hires is None:
             return out
         base_history = None
@@ -471,10 +628,21 @@ class StableDiffusionTorch:
                 states, ids, height=gen_hr.height, width=gen_hr.width,
                 num_images_per_prompt=nipp,
                 do_cfg=gen_hr.guidance_scale > 1.0)
+        hr_extras = extras
+        if hires.get("rebuild_extras") is not None:
+            hr_extras = hires["rebuild_extras"](gen_hr)
+        elif extras is not None and (extras.controlnet_images is not None
+                                     or extras.t2i_residuals is not None):
+            raise ValueError(
+                "hires with ControlNet/T2I units needs "
+                "hires['rebuild_extras'] (a fn(gen_hr) -> DenoiseExtras "
+                "re-preparing the unit images at the target resolution); "
+                "base-resolution extras cannot drive the hires pass")
         hr_out = self.img2img(context, up, gen_hr,
                               strength=float(hires.get("strength", 0.6)),
                               seed=_next_seed(seed), region_biases=hr_biases,
-                              decode=decode, uint8_output=uint8_output,
+                              decode=decode, extras=hr_extras,
+                              uint8_output=uint8_output,
                               return_history=return_history)
         if return_history:
             hr_out, hr_history = hr_out
@@ -485,13 +653,14 @@ class StableDiffusionTorch:
     def img2img(self, context: torch.Tensor, init_latents: torch.Tensor,
                 gen: GenerationConfig, strength: float = 0.8,
                 seed: SeedT = 0, region_biases=None, decode: bool = True,
-                uint8_output: bool = False, return_history: bool = False,
-                **unsupported):
+                extras: Optional[DenoiseExtras] = None,
+                return_history: bool = False, uint8_output: bool = False):
         """img2img on latents: the schedule is cut by ``strength`` and the
         init latents are noised to its first sigma. ``init_latents`` are
-        (B, h, w, 4) *scaled* latents; ``seed`` as in ``txt2img``. Returns
-        what ``txt2img`` returns."""
-        _check_unsupported(unsupported)
+        (B, h, w, 4) *scaled* latents; ``seed`` and ``extras`` as in
+        ``txt2img``. The units' per-step tables have a column a step of
+        ``gen``; the cut schedule's steps read their first columns, as in
+        the JAX package. Returns what ``txt2img`` returns."""
         sigma_sched = self._cut_schedule(gen, strength)
         init = torch.as_tensor(init_latents, dtype=torch.float32,
                                device=self.device)
@@ -501,14 +670,15 @@ class StableDiffusionTorch:
         noise = self._solver_noise(seeds, sigma_sched, tuple(init.shape),
                                    gen.sampler)
         return self._sample(x, context, region_biases, sigma_sched, gen,
-                            noise, decode, uint8_output, return_history)
+                            noise, decode, uint8_output, return_history,
+                            extras)
 
     @torch.inference_mode()
     def inpaint(self, context: torch.Tensor, init_image: torch.Tensor,
                 mask: torch.Tensor, gen: GenerationConfig,
                 strength: float = 1.0, seed: SeedT = 0, region_biases=None,
-                decode: bool = True, uint8_output: bool = False,
-                return_history: bool = False, **unsupported):
+                decode: bool = True, extras: Optional[DenoiseExtras] = None,
+                return_history: bool = False, uint8_output: bool = False):
         """Inpaint ``init_image`` (B, H, W, 3) in [-1, 1] where ``mask``
         (B, H, W) is 1 (regenerate); ``seed`` as in ``txt2img``.
 
@@ -519,7 +689,8 @@ class StableDiffusionTorch:
         input channels. The latents start from pure noise when ``strength``
         >= 1 or the UNet has 9 channels, else from the init image's latents
         noised to the first sigma. An asymmetric VAE decodes with the masked
-        init image and the mask as its condition.
+        init image and the mask as its condition. ``extras`` (units) are
+        merged with the inpaint fields.
 
         Each sample's generator draws, in order: the posterior draw (shared
         by both encodes of a 9-channel request, as JAX shares its key), the
@@ -529,7 +700,6 @@ class StableDiffusionTorch:
 
         Returns what ``txt2img`` returns (with ``return_history``, the
         history of the unblended latents)."""
-        _check_unsupported(unsupported)
         init = torch.as_tensor(init_image, dtype=torch.float32,
                                device=self.device)
         mask = torch.as_tensor(mask, dtype=torch.float32, device=self.device)
@@ -548,17 +718,18 @@ class StableDiffusionTorch:
         mask_l = resize_latents(mask_full, h // 8, w // 8, mode="nearest")
         masked_image = init * (1.0 - mask_full)
         image_latents = None
+        extras = extras or DenoiseExtras()
         if nine_channel:
             extra = torch.cat([mask_l, self._encode(masked_image, eps)],
                               dim=-1)
             if gen.guidance_scale > 1.0:
                 extra = torch.cat([extra, extra], dim=0)
-            extras = DenoiseExtras(extra_channels=extra)
+            extras = dataclasses.replace(extras, extra_channels=extra)
         else:
             image_latents = self._encode(init, eps)
-            extras = DenoiseExtras(inpaint_mask=mask_l,
-                                   inpaint_image_latents=image_latents,
-                                   inpaint_noise=draws[2])
+            extras = dataclasses.replace(
+                extras, inpaint_mask=mask_l,
+                inpaint_image_latents=image_latents, inpaint_noise=draws[2])
         x = noise0 * float(np.sqrt(sigma_sched[0] ** 2 + 1.0))
         if strength < 1.0 and not nine_channel:
             x = image_latents + x
@@ -606,10 +777,12 @@ class StableDiffusionTorch:
     @torch.inference_mode()
     def sample_chunked(self, context: torch.Tensor, gen: GenerationConfig,
                        seed: SeedT = 0, region_biases=None,
-                       batch_size: int = 1, chunk_steps: int = 8,
-                       on_chunk=None, latents: Optional[torch.Tensor] = None,
+                       batch_size: int = 1,
+                       extras: Optional[DenoiseExtras] = None,
+                       chunk_steps: int = 8, on_chunk=None,
+                       latents: Optional[torch.Tensor] = None,
                        decode: bool = True, uint8_output: bool = False,
-                       resume: Optional[ChunkedPause] = None, **unsupported):
+                       resume: Optional[ChunkedPause] = None):
         """txt2img that returns to the caller every ``chunk_steps`` solver
         steps: after each chunk it waits for the device and calls
         ``on_chunk(steps_done, steps_total)``, which may raise to cancel the
@@ -619,8 +792,8 @@ class StableDiffusionTorch:
         over slices of the full schedule with the solver's carry passed
         through, so the result is bitwise equal to ``txt2img``'s, paused or
         not. ``dpm_fast`` and ``dpm_adaptive`` have no fixed steps to slice
-        and raise ``ValueError``."""
-        _check_unsupported(unsupported)
+        and raise ``ValueError``. The units' step index (``extras``) is taken
+        on the full schedule."""
         if gen.sampler not in solvers.CHUNKABLE:
             raise ValueError(
                 f"solver {gen.sampler!r} does not support chunked execution "
@@ -637,7 +810,7 @@ class StableDiffusionTorch:
         else:
             carry, x, pos = None, latents, 0
         solver_fn = solvers.SOLVERS[gen.sampler][0]
-        denoise = self._denoiser(context, region_biases, gen)
+        denoise = self._denoiser(context, region_biases, gen, sigmas, extras)
         opts = self._solver_opts(gen, defaults)
         while pos < n_total:
             size = min(int(chunk_steps), n_total - pos)

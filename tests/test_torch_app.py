@@ -266,9 +266,11 @@ def _summ(x):
     return x
 
 
-def _recorder(log, xp):
+def _recorder(log, xp, arrays):
     """A stand-in for the pipeline class that logs each call and returns
-    placeholders of the right shapes (numpy for JAX, torch for the port)."""
+    placeholders of the right shapes (numpy for JAX, torch for the port);
+    the unit images its extras builders get go to ``arrays`` whole, and
+    the hires pass's ``rebuild_extras`` is called with the pass's config."""
     zeros = ((lambda s, dt="float32": np.zeros(s, dt)) if xp is np else
              (lambda s, dt="float32": torch.zeros(s, dtype=getattr(
                  torch, dt))))
@@ -308,6 +310,13 @@ def _recorder(log, xp):
         def txt2img(self, context, gen, **kw):
             self._log("txt2img", (context, gen), kw)
             hires = kw.get("hires")
+            if hires and hires.get("rebuild_extras"):
+                scale = float(hires["scale"])
+                hires["rebuild_extras"](dataclasses.replace(
+                    gen, height=int(gen.height * scale) // 8 * 8,
+                    width=int(gen.width * scale) // 8 * 8,
+                    num_inference_steps=hires.get("steps")
+                    or gen.num_inference_steps))
             return self._images(n_of(kw.get("seed"), kw.get("batch_size", 1)),
                                 gen, kw, hires["scale"] if hires else 1.0)
 
@@ -357,6 +366,23 @@ def _recorder(log, xp):
                 return np.asarray(images).astype(np.uint8)
             return images.to(torch.uint8)
 
+        def _unit_images(self, name, gen, params, imgs, kw):
+            """Logs the images' shapes and dtypes; their values go to
+            ``arrays`` (a resize differs by rounding between packages)."""
+            self._log(name, (gen, params, [(tuple(i.shape),
+                                            _dtype_name(i.dtype))
+                                           for i in imgs]), kw)
+            arrays.extend(np.asarray(i, np.float64) for i in imgs)
+            return f"{name} {len(arrays)}"
+
+        def build_controlnet_extras(self, gen, params, imgs, **kw):
+            return self._unit_images("build_controlnet_extras", gen, params,
+                                     imgs, kw)
+
+        def build_t2i_extras(self, gen, params, imgs, **kw):
+            return self._unit_images("build_t2i_extras", gen, params, imgs,
+                                     kw)
+
     return Recorder
 
 
@@ -367,6 +393,12 @@ _INIT = np.random.default_rng(0).integers(0, 256, (64, 64, 3)).astype(
     np.uint8)
 _TURBO = ("cfg_tail_frac", 0.3), ("deepcache_interval", 3), (
     "bottleneck_low_scale", 0.5), ("tgate_gate_frac", 0.5)
+_UNIT = np.random.default_rng(1).random((64, 64, 3)).astype(np.float32)
+_BIG = np.random.default_rng(2).random((96, 96, 3)).astype(np.float32)
+_CN = {"kind": "ControlNetUnit", "model": "Canny", "image": _UNIT,
+       "scale": 0.8, "guidance_end": 0.6}
+_T2I = {"kind": "T2IAdapterUnit", "model": "Sketch", "image": _UNIT,
+        "scale": 0.9, "conditioning_factor": 0.5}
 
 # (id, inference keyword arguments) on top of a tiny 64^2, 4-step request
 REQUESTS = [
@@ -435,26 +467,100 @@ REQUESTS = [
     (f"{a}+preview", {a: va, "latent_preview": True}) for a, va in _TURBO
 ] + [
     (a, {a: va, "region_state": _state(64)}) for a, va in _TURBO
+] + [  # ControlNet and T2I-Adapter units: dicts made into each package's
+    # unit dataclass by _run
+    ("cn", {"controlnet_units": [_CN]}),
+    ("t2i", {"t2i_units": [_T2I]}),
+    ("cn_t2i_two_each", {
+        "controlnet_units": [_CN, {**_CN, "model": "Depth", "scale": 0.5,
+                                   "guidance_start": 0.25,
+                                   "guidance_end": 0.75}],
+        "t2i_units": [_T2I, {**_T2I, "model": "Color", "scale": 0.3,
+                             "conditioning_factor": 0.25}],
+        "region_state": _state(64)}),
+    ("cn_guess_any", {"controlnet_units": [_CN, {**_CN, "guess_mode": True}]}),
+    ("cn_cfg_off", {"controlnet_units": [_CN], "cfg_scale": 1.0}),
+    ("cn_nipp2", {"controlnet_units": [_CN], "t2i_units": [_T2I],
+                  "num_images_per_prompt": 2}),
+    ("cn_grid", {"prompt": [PROMPT, "a dog"], "seed": [4, 9],
+                 "controlnet_units": [_CN], "t2i_units": [_T2I]}),
+    ("cn_grid_img2img", {"prompt": ["a", "b"], "init_image": _INIT,
+                         "controlnet_units": [_CN]}),
+    ("cn_hires", {"controlnet_units": [_CN], "t2i_units": [_T2I],
+                  "hires_scale": 2.0, "hires_steps": 2,
+                  "region_state": _state(64)}),
+    ("cn_img2img", {"controlnet_units": [_CN], "init_image": _INIT,
+                    "strength": 0.5}),
+    ("cn_inpaint", {"t2i_units": [_T2I], "controlnet_units": [_CN],
+                    "init_image": _INIT, "inpaint_mask": _MASK}),
+    ("cn_chunked", {"controlnet_units": [_CN], "cancel_check_steps": 2}),
+    ("unit_uint8_and_2d", {
+        "controlnet_units": [{**_CN, "image": _INIT}],
+        "t2i_units": [{**_T2I, "image": _UNIT[..., 0]}]}),
+    ("unit_larger_than_request", {
+        "controlnet_units": [{**_CN, "image": _BIG}],
+        "t2i_units": [{**_T2I, "image": _BIG[:80, :72]}],
+        "hires_scale": 1.5}),
+    ("unit_preprocessor", {"controlnet_units": [
+        _CN, {**_CN, "preprocessor": "Canny",
+              "preprocessor_options": {"low": 100}}]}),
+    ("unit_path", {"t2i_units": [{**_T2I, "model": __file__}]}),
 ]
 
 
-def _run(package, monkeypatch, kwargs):
-    """(calls, outcome) of one inference() in ``package``."""
+def _units(api, kwargs):
+    """The unit dicts of a request as ``api``'s unit dataclasses."""
+    out = dict(kwargs)
+    for key in ("controlnet_units", "t2i_units"):
+        if key in out:
+            out[key] = [getattr(api, u["kind"])(**{
+                k: v for k, v in u.items() if k != "kind"}) for u in out[key]]
+    return out
+
+
+def _stub_unit_models(m, log, real):
+    """Record the manager's unit-model and preprocessor calls and hand the
+    pipeline a name in place of each model. With ``real``, the manager's
+    own methods run first (the port: a random model, or the raise for a
+    path or a preprocessor); the JAX package's would build or load a model,
+    so its side only records."""
+    def stub(name, what):
+        own = getattr(m, name)
+
+        def call(model, *args, **kwargs):
+            log.append((name, model))
+            if real:
+                own(model, *args, **kwargs)
+            return (lambda img, **kw: np.asarray(img, np.float32)) \
+                if name == "get_preprocessor" else f"{what} {model}"
+        setattr(m, name, call)
+
+    stub("get_controlnet", "controlnet")
+    stub("get_t2i_adapter", "adapter")
+    stub("get_preprocessor", "preprocessor")
+
+
+def _run(package, monkeypatch, kwargs, arrays=None):
+    """(calls, outcome) of one inference() in ``package``; the unit images
+    the pipeline's extras builders get are appended to ``arrays``."""
     log = []
+    arrays = [] if arrays is None else arrays
     if package == "jax":
         api, m = japi, japi.ModelManager(dtype=jnp.float32)
-        monkeypatch.setattr(api, "StableDiffusionTPU", _recorder(log, np))
+        monkeypatch.setattr(api, "StableDiffusionTPU",
+                            _recorder(log, np, arrays))
     else:
         api, m = tapi, tapi.ModelManager(dtype=torch.float32, device="cpu")
         monkeypatch.setattr(api, "StableDiffusionTorch",
-                            _recorder(log, torch))
+                            _recorder(log, torch, arrays))
     m._dirs["tiny"] = ("", _CFG)
     m._cache["tiny"] = {}
     m._tokenizers["tiny"] = None
+    _stub_unit_models(m, log, real=package == "torch")
     ticks = []
     kw = {"prompt": PROMPT, "model": "tiny", "steps": 4, "width": 64,
           "height": 64, "progress_cb": lambda d, t: ticks.append((d, t)),
-          **kwargs}
+          **_units(api, kwargs)}
     if package == "jax":
         kw["dtype"] = jnp.float32
     else:
@@ -476,17 +582,30 @@ def test_inference_routes_as_jax(kwargs, monkeypatch):
     same arguments in the same order, and return images of the same shape
     or raise the same error. A request JAX sends to a speed mode raises
     NotImplementedError naming ROADMAP item 18 in the port, after the same
-    calls."""
-    jlog, jticks, jout = _run("jax", monkeypatch, kwargs)
-    tlog, tticks, tout = _run("torch", monkeypatch, kwargs)
+    calls; a unit model from a path raises naming item 17, and a unit's
+    preprocessor naming item 20, at the manager call where the JAX package
+    would load the model or build the preprocessor. The unit images the
+    extras builders get (fitted to the request's size, or the hires pass's)
+    are equal to 1e-6."""
+    jarr, tarr = [], []
+    jlog, jticks, jout = _run("jax", monkeypatch, kwargs, jarr)
+    tlog, tticks, tout = _run("torch", monkeypatch, kwargs, tarr)
     speed = [c for c in jlog if c[0].startswith("txt2img_")]
     if speed and jout[0] == "ok":
         assert tout[0] == "NotImplementedError" and "item 18" in tout[1]
         jlog = jlog[:jlog.index(speed[0])]
+    elif tout[0] == "NotImplementedError" and jout[0] == "ok":
+        item = 20 if tlog[-1][0] == "get_preprocessor" else 17
+        assert f"item {item}" in tout[1] and tlog[-1][0].startswith("get_")
+        jlog, jarr = jlog[:len(tlog)], []
     else:
         assert tout == jout
     assert tlog == jlog
     assert tticks == jticks
+    assert len(tarr) == len(jarr)
+    for t, j in zip(tarr, jarr):
+        assert t.shape == j.shape
+        np.testing.assert_allclose(t, j, rtol=0, atol=1e-6)
 
 
 # -- the port on the tiny model ---------------------------------------------
@@ -634,12 +753,16 @@ def test_watchdog_and_progress_cb_stop_a_run(manager):
 
 
 def test_unported_paths_raise_naming_their_item(manager, tmp_path):
+    """What is not ported raises naming its ROADMAP item: unit weights from
+    a path (17) and a unit's preprocessor (20) among them; a unit model by
+    name runs (tests/test_torch_units.py has the units' parity)."""
     base = dict(prompt=PROMPT, model="tiny", steps=2, width=64, height=64,
                 dtype=torch.float32)
     img = np.zeros((64, 64, 3), np.float32)
     for kwargs, item in (
-            ({"controlnet_units": [tapi.ControlNetUnit("Canny", img)]}, 15),
-            ({"t2i_units": [tapi.T2IAdapterUnit("Canny", img)]}, 15),
+            ({"controlnet_units": [tapi.ControlNetUnit(
+                "Canny", img, preprocessor="Canny")]}, 20),
+            ({"t2i_units": [tapi.T2IAdapterUnit(str(tmp_path), img)]}, 17),
             ({"ip_adapter_units": [tapi.IPAdapterUnit("IP-Adapter", img)]},
              16),
             ({"loras": ["style.safetensors"]}, 17),
@@ -650,8 +773,10 @@ def test_unported_paths_raise_naming_their_item(manager, tmp_path):
     manager.register("on disk", str(tmp_path))
     with pytest.raises(NotImplementedError, match="item 17"):
         manager.get("on disk")
-    for call, item in ((lambda: manager.get_controlnet("Canny", None), 15),
-                       (lambda: manager.get_t2i_adapter("Canny"), 15),
+    unet = tcfg.tiny_config().unet
+    for call, item in ((lambda: manager.get_controlnet(str(tmp_path), unet),
+                        17),
+                       (lambda: manager.get_t2i_adapter(str(tmp_path)), 17),
                        (lambda: manager.get_ip_adapter_state("x", None), 16),
                        (manager.get_image_encoder, 16),
                        (manager.register_image_encoder, 16),
@@ -665,6 +790,32 @@ def test_unported_paths_raise_naming_their_item(manager, tmp_path):
             call()
     with pytest.raises(KeyError, match="not registered"):
         manager.get("nope")
+    cn = manager.get_controlnet("Canny", unet)
+    assert manager.get_controlnet("Canny", unet) is cn
+    assert not cn["mid_zero_conv"]["kernel"].any()
+    assert not any(z["kernel"].any() for z in cn["zero_convs"])
+    ad = manager.get_t2i_adapter("Sketch", unet)
+    assert ad["blocks"][3]["in_conv"] is None  # 128 -> 128
+    assert manager.get_t2i_adapter("Sketch") is ad  # cached by name
+    fresh = tapi.ModelManager(dtype=torch.float32, device="cpu")
+    assert fresh.get_t2i_adapter("x")["blocks"][0]["in_conv"]["kernel"] \
+        .shape[0] == 320  # the SD1.5 adapter without a config
+
+
+def test_zero_head_controlnet_unit_changes_nothing(manager):
+    """A ControlNet by name (zero heads) gives the image of the request
+    without it, bit for bit; a T2I-Adapter unit changes the image."""
+    kw = dict(prompt=PROMPT, model="tiny", steps=2, width=64, height=64,
+              seed=3, encoding_mode="short", dtype=torch.float32)
+    img = np.random.default_rng(3).integers(0, 256, (80, 80, 3)).astype(
+        np.uint8)
+    plain = tapi.inference(manager, **kw)["images"]
+    cn = tapi.inference(manager, controlnet_units=[
+        tapi.ControlNetUnit("Canny", img, guess_mode=True)], **kw)["images"]
+    t2i = tapi.inference(manager, t2i_units=[
+        tapi.T2IAdapterUnit("Sketch", img)], **kw)["images"]
+    assert np.array_equal(cn, plain)
+    assert not np.array_equal(t2i, plain)
 
 
 def test_manager_registers_the_zoo_and_needs_a_card_by_default(tmp_path):

@@ -5,8 +5,8 @@ The server runs ``serve(manager, port=0, block=False)`` with the tiny model
 on the CPU: identical POSTs return identical PNGs, equal to the native
 codec's encoding of a direct ``inference()`` call; the job queue reports
 progress, runs to done and cancels a queued job; ``/warmup`` returns one
-record per config; errors answer 400 (a caller's mistake), 404 or 501 (not
-ported yet), never 200. ``_inference_kwargs`` of both packages turn the
+record per config; ControlNet and T2I-Adapter units run; errors answer 400
+(a caller's mistake), 404 or 501 (not ported yet), never 200. ``_inference_kwargs`` of both packages turn the
 same JSON payloads into equal keyword arguments (no JAX program runs).
 """
 
@@ -156,8 +156,8 @@ def test_warmup_returns_one_record_per_config(server):
     ("bad combination", {**BASE, "latent_preview": "all"}, 400,
      "latent_preview must be bool"),
     ("controlnet unit", {**BASE, "controlnet_units": [
-        {"model": "Canny", "image": np.zeros((8, 8, 3)).tolist()}]}, 501,
-     "item 15"),
+        {"model": "Canny", "image": np.zeros((8, 8, 3)).tolist(),
+         "preprocessor": "Canny"}]}, 501, "item 20"),
     ("ip-adapter unit", {**BASE, "ip_adapter_units": [
         {"model": "IP-Adapter", "image_embeds": [0.0] * 8}]}, 501,
      "item 16"),
@@ -168,6 +168,28 @@ def test_generate_errors(server, case):
     _, payload, code, text = case
     status, out = _call(srv, "/generate", payload)
     assert status == code and text in out["error"], out
+
+
+def test_generate_with_units_equals_inference(server):
+    """ControlNet and T2I-Adapter units over HTTP (the unit images as nested
+    lists, uint8, smaller than the request) give the PNG of a direct
+    ``inference()`` call; a ControlNet with zero heads gives the PNG of the
+    request without it."""
+    srv, m = server
+    img = (np.arange(48 * 48 * 3).reshape(48, 48, 3) % 251).astype(np.uint8)
+    cn = {**BASE, "controlnet_units": [{"model": "Canny",
+                                        "image": img.tolist()}]}
+    both = {**cn, "t2i_units": [{"model": "Sketch", "image": img.tolist(),
+                                 "scale": 0.8}]}
+    plain = _call(srv, "/generate", BASE)[1]["images"]
+    for payload in (cn, both):
+        status, out = _call(srv, "/generate", payload)
+        assert status == 200, out
+        direct = tapi.inference(m, **tserver._inference_kwargs(payload))
+        assert base64.b64decode(out["images"][0]) == \
+            native.encode_png(direct["images"][0])
+    assert _call(srv, "/generate", cn)[1]["images"] == plain
+    assert _call(srv, "/generate", both)[1]["images"] != plain
 
 
 def test_other_endpoints(server):

@@ -35,6 +35,9 @@ PACKAGE = ROOT / "diffusionspatialcontrol_tpu_torch"
 APP_LAYER = tuple(f"diffusionspatialcontrol_tpu_torch.{m}" for m in (
     "registry", "utils.profiling", "runtime.native", "app.api",
     "parallel.batched", "utils.region_ui", "app.server"))
+# the ControlNet and T2I-Adapter models
+UNITS = tuple(f"diffusionspatialcontrol_tpu_torch.models.{m}"
+              for m in ("controlnet", "t2i_adapter"))
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -56,7 +59,7 @@ def test_importing_every_port_module_loads_no_jax():
                          check=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(result["modules"]) >= 20
-    assert set(APP_LAYER) <= set(result["modules"])
+    assert set(APP_LAYER + UNITS) <= set(result["modules"])
     assert result["loaded"] == []
 
 

@@ -295,9 +295,11 @@ def test_seed_list_is_batch_invariant():
 
 
 def test_unported_paths_raise(params):
-    """What is still unported raises (extras, hires['rebuild_extras']); the
-    prompt modes, samplers, hires overrides and history that raised before
-    the solver slice now run."""
+    """What raised before now runs or raises what the JAX package raises:
+    the prompt modes, samplers, hires overrides and history; unit extras
+    (ControlNet, T2I-Adapter), which a hires pass takes only through
+    hires['rebuild_extras'] (ValueError without it, as in the JAX
+    package); an unknown keyword is a TypeError like any other call's."""
     _, tp = params
     pipe = StableDiffusionTorch(tcfg.tiny_config(), tp,
                                 tokenizer=ttok.HashTokenizer(), device="cpu")
@@ -306,10 +308,17 @@ def test_unported_paths_raise(params):
     ctx, _ = pipe.encode_prompt([PROMPT], [NEG])
     gen = tcfg.GenerationConfig(height=64, width=64, num_inference_steps=2,
                                 dtype=torch.float32)
-    with pytest.raises(NotImplementedError):
-        pipe.txt2img(ctx, gen, hires={"rebuild_extras": lambda g: None})
-    with pytest.raises(NotImplementedError):
-        pipe.txt2img(ctx, gen, extras=object())
+    t2i = tpipeline.DenoiseExtras(t2i_residuals=(), t2i_active=np.ones(2))
+    with pytest.raises(ValueError, match="rebuild_extras"):
+        pipe.txt2img(ctx, gen, extras=t2i, hires={"scale": 1.0})
+    rebuilt = []
+    img = pipe.txt2img(ctx, gen, hires={
+        "scale": 1.0, "steps": 2, "strength": 0.5,
+        "rebuild_extras": lambda g: rebuilt.append(g) or None})
+    assert [g.num_inference_steps for g in rebuilt] == [2]
+    assert img.shape == (1, 64, 64, 3) and torch.isfinite(img).all()
+    with pytest.raises(TypeError):
+        pipe.txt2img(ctx, gen, freeu=object())
     with pytest.raises(KeyError):
         pipe.txt2img(ctx, tcfg.GenerationConfig(sampler="no_such_solver"))
     img, (base, hr) = pipe.txt2img(

@@ -96,15 +96,30 @@ def test_unet_fused_convs_match_jax_xla(unet_params, conv_impl):
 
 
 def test_unet_rejects_unported_options(unet_params):
+    """FreeU, heatmaps and the TGATE cache still raise; ControlNet and T2I
+    residuals (``UNetCond``) now run: zero residuals leave the output as it
+    is, bit for bit (their parity is tests/test_torch_units.py's)."""
     _, tp = unet_params
     x, ctx, t, _ = _inputs(2)
     cond = tunet.UNetCond(context=torch.from_numpy(ctx))
     args = (tp, tcfg.tiny_config().unet, torch.from_numpy(x),
             torch.from_numpy(t), cond)
-    with pytest.raises(NotImplementedError):
-        tunet.unet_apply(*args, freeu=object())
+    for option in ({"freeu": object()}, {"collect_heatmaps": True},
+                   {"xattn_cache": ()}):
+        with pytest.raises(NotImplementedError):
+            tunet.unet_apply(*args, **option)
     with pytest.raises(ValueError):
         tunet.unet_apply(*args, conv_impl="cudnn")
+    plain = tunet.unet_apply(*args)
+    skips = [(16, 32)] * 3 + [(8, 32), (8, 64), (8, 64), (4, 64), (4, 128),
+                              (4, 128), (2, 128), (2, 128), (2, 128)]
+    zero = tunet.UNetCond(
+        context=cond.context,
+        controlnet_down=tuple(torch.zeros(2, s, s, c) for s, c in skips),
+        controlnet_mid=torch.zeros(2, 2, 2, 128),
+        t2i_residuals=tuple(torch.zeros(2, s, s, c) for s, c in (
+            (16, 32), (8, 64), (4, 128), (2, 128))))
+    assert torch.equal(tunet.unet_apply(*args[:4], zero), plain)
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
