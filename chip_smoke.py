@@ -19,8 +19,11 @@ result line:
    self-attention at 1024^2, L = 16384, and at 1920x1088, L = 32640); K4
    and K5 (the fused GroupNorm+SiLU+conv3x3) at every resnet-conv shape of
    the UNet and the VAE decoder at 512^2 and 1024^2 and of the VAE encoder
-   at 512^2 (img2img and inpaint), with the RMS-relative
-   error beside the elementwise one and, where the C_in chunks are split
+   at 512^2 (img2img and inpaint); K2 at IP-Adapter's shapes (the
+   decoupled cross-attention at S = 1, 4 and 16 image tokens at every
+   level and at the hires pass's L = 16384, the ViT-H/14 tower's
+   L = S = 257 at D = 80, the Resampler's L = 16, S = 273 at D = 64),
+   with the RMS-relative error beside the elementwise one and, where the C_in chunks are split
    over several blocks, two launches held bitwise equal. Each with its time
    beside the plain version's, the least time the card could take (bound;
    the log lines of attention also give the time of its exps alone, and
@@ -46,7 +49,10 @@ result line:
    ControlNets with random heads (one; two with keep windows and a
    T2I-Adapter; guess mode; Heun with a window; img2img at strength 0.75;
    hires with the units rebuilt at 128^2), each also required to move the
-   image. The card's uint8 conversion must equal the JAX package's codec
+   image; and IP-Adapter: each of the six names of the app's table two
+   units at once (one masked), embedded as the app embeds them (a tiny
+   CLIP-vision tower; for FaceID the tiny SCRFD detector and a 512-wide
+   tiny ArcFace), and a hires request reusing the tokens. The card's uint8 conversion must equal the JAX package's codec
    rounding bit for bit. Launches are exact: 16 of K1 and K2 per UNet
    call, and 14 of K2 per ControlNet call, the calls counted at the
    denoiser;
@@ -68,8 +74,11 @@ result line:
    profile; before those, the unit requests (``spatial_controlnet``: a
    ControlNet with random heads; ``spatial_t2i``: the full T2I-Adapter;
    ``hires_controlnet``: 512^2 -> 1024^2 with the ControlNet, K2 at
-   L = 16384 in both models; their denoiser calls may not read from the
-   card). It checks every image, the UNet calls and the kernels'
+   L = 16384 in both models) and the IP-Adapter requests through a
+   ``ModelManager``'s ViT-H/14 tower, SCRFD detector and ArcFace embedder
+   (``spatial_ip``, ``spatial_ip_plus_masked``, ``faceid`` on a raw
+   photo, ``hires_ip``); the unit requests' denoiser calls may not read
+   from the card. It checks every image, the UNet calls and the kernels'
    exact launch counts, prints the p50 seconds per image of each request
    type after one warm-up, and profiles one request of most types by its
    kernels (the spatial request also with the host's ops) at the end of
@@ -80,8 +89,10 @@ result line:
    PNGs decoded here and held bit for bit to a direct ``inference()`` call
    and to the pipeline; repeated POSTs byte-identical), a job polled to
    25/25 and one cancelled while queued, 2 x 2 grids, a hires request, a
-   ControlNet unit (zero heads: the spatial PNG bit for bit) and a
-   T2I-Adapter unit, and ``/warmup``, with exact UNet calls and launches; the HTTP, direct and
+   ControlNet unit (zero heads: the spatial PNG bit for bit), a
+   T2I-Adapter unit, an IP-Adapter unit (``inference()``'s PNG bit for
+   bit) and the same at scale 0 (the spatial PNG bit for bit), and
+   ``/warmup``, with exact UNet calls and launches; the HTTP, direct and
    pipeline p50s side by side, and one HTTP request profiled by its
    kernels.
 
@@ -92,7 +103,9 @@ line and, last, ``{"ok": true, "device": {...}}``.
 result lines are printed only when every phase ran. ``--tree DIR`` runs
 those phases of another checkout's chip_smoke.py (a parent commit unpacked
 with ``git archive``) with this file's timer, so that two trees' kernel
-times are taken alike.
+times are taken alike. ``--no-profiles`` skips the profiles queued for the
+end of the run: with ``--phases build,main`` it takes two trees' p50s in
+one call.
 """
 
 from __future__ import annotations
@@ -156,6 +169,16 @@ LONG_PROMPT = (
 # above.
 K3_SHAPES = ((16384, 40), (32640, 40))
 HIRES = 1024
+# IP-Adapter's attentions on K2: the decoupled cross-attention at each
+# level (B = 2, the CFG pair; H = 8) with S = 1 (Face), 4 (base, Light,
+# FaceID) and 16 (Plus, Plus Face) image tokens, and at the hires pass's
+# level 0 (L = 16384, D = 40) with the base adapter's 4; the ViT-H/14 image
+# tower's self-attention, (B, L = S, H, D) = (1, 257, 16, 80), 32 layers
+# (31 for the penultimate hidden states); the Resampler's, (1, 16, 12, 64)
+# over S = 257 + 16 keys, 2 layers.
+IP_TOKENS = (1, 4, 16)
+IP_TOWER = (1, 257, 16, 80, 32)  # (B, L = S, H, D, layers)
+IP_RESAMPLER = (1, 16, 273, 12, 64, 2)  # (B, L, S, H, D, layers)
 ROUNDS = 4  # phase app: timed rounds of each path after one warm-up
 NEW_SEEDS = [0, 1, 2, 3, 4]  # the images-in and SD2.1 requests: a warm-up
 
@@ -385,7 +408,8 @@ def phase_kernels(ctx):
     g = torch.Generator(device=dev).manual_seed(0)
     timer = ColdTimer(dev)
     rows = {"K1": [], "K1 chunked": [], "K2": [], "K2 cross": [],
-            "K2 chunked": [], "K1 sd21": [], "K2 sd21": []}
+            "K2 chunked": [], "K1 sd21": [], "K2 sd21": [], "K2 ip": [],
+            "K2 ip tower": [], "K2 ip resampler": []}
     errs = {"K1": [0.0, 0.0], "K2": [0.0, 0.0]}  # [fp32, bf16]
 
     def sdpa(q, k, v, mask=None):
@@ -393,25 +417,36 @@ def phase_kernels(ctx):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=mask)
 
-    cases = []
+    cases = []  # (name, L, S, D, launches a UNet call, heads, batch)
     for l, d, n in LEVELS:
-        cases.append(("K2", l, l, d, n, HEADS))          # self-attention
-        cases.append(("K2 cross", l, TEXT, d, n, HEADS))  # cross, vanilla
-        cases.append(("K1", l, TEXT, d, n, HEADS))       # cross, spatial
+        cases.append(("K2", l, l, d, n, HEADS, BATCH))     # self-attention
+        cases.append(("K2 cross", l, TEXT, d, n, HEADS, BATCH))  # vanilla
+        cases.append(("K1", l, TEXT, d, n, HEADS, BATCH))  # cross, spatial
     for l, d, _ in LEVELS:  # longer prompts: 0 launches a 77-token request
-        cases += [("K1 chunked", l, s, d, 0, HEADS)
+        cases += [("K1 chunked", l, s, d, 0, HEADS, BATCH)
                   for s in sorted(CHUNKED_TEXT + LONG_IDS)]
-        cases += [("K2 chunked", l, s, d, 0, HEADS)
+        cases += [("K2 chunked", l, s, d, 0, HEADS, BATCH)
                   for s in sorted(CHUNKED_TEXT[:2] + LONG_IDS)]
     for l, heads, n in LEVELS_SD21 + ((L_SD21_768, 5, 0),):
         # sd21_spatial: self and spatial cross; the v model's 768^2 level 0
-        cases.append(("K2 sd21", l, l, D_SD21, n, heads))
-        cases.append(("K1 sd21", l, TEXT, D_SD21, n, heads))
-    for name, l, s, d, n, heads in cases:
+        cases.append(("K2 sd21", l, l, D_SD21, n, heads, BATCH))
+        cases.append(("K1 sd21", l, TEXT, D_SD21, n, heads, BATCH))
+    # IP-Adapter: the decoupled attention (launches a UNet call a adapter),
+    # the image tower's and the Resampler's (launches a request)
+    for s_ip in IP_TOKENS:
+        cases += [("K2 ip", l, s_ip, d, n, HEADS, BATCH)
+                  for l, d, n in LEVELS]
+    cases.append(("K2 ip", K3_SHAPES[0][0], 4, K3_SHAPES[0][1],
+                  LEVELS[0][2], HEADS, BATCH))
+    b_t, l_t, h_t, d_t, n_t = IP_TOWER
+    cases.append(("K2 ip tower", l_t, l_t, d_t, n_t, h_t, b_t))
+    b_r, l_r, s_r, h_r, d_r, n_r = IP_RESAMPLER
+    cases.append(("K2 ip resampler", l_r, s_r, d_r, n_r, h_r, b_r))
+    for name, l, s, d, n, heads, batch in cases:
         kern = name[:2]
-        tag = f"{name} L={l} S={s} H={heads} D={d}"
-        q, k, v = _qkv(g, BATCH, l, s, heads, d, torch.float32, dev)
-        w = torch.randn(BATCH, l, s, generator=g, device=dev)
+        tag = f"{name} B={batch} L={l} S={s} H={heads} D={d}"
+        q, k, v = _qkv(g, batch, l, s, heads, d, torch.float32, dev)
+        w = torch.randn(batch, l, s, generator=g, device=dev)
         if kern == "K1":
             def run(q, k, v):
                 return k1.region_softmax_attention(q, k, v, w)
@@ -443,11 +478,12 @@ def phase_kernels(ctx):
         ms = timer(lambda: run(qb, kb, vb))
         plain_ms = timer(lambda: plain(qb, kb, vb), reps=5)
         lib_ms = timer(lambda: sdpa(qb, kb, vb, mask))
-        b_ms, t_bytes, t_ops = bound(BATCH, heads, l, s, d, torch.bfloat16,
+        b_ms, t_bytes, t_ops = bound(batch, heads, l, s, d, torch.bfloat16,
                                      kern == "K1")
         rows[name].append({
             "model": "sd21" if "sd21" in name else "sd15",
-            "L": l, "S": s, "H": heads, "D": d, "per_unet_call": n, "ms": ms,
+            "B": batch, "L": l, "S": s, "H": heads, "D": d,
+            "per_unet_call": n, "ms": ms,
             "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes_ms": 1e3 * t_bytes, "operations_ms": 1e3 * t_ops,
@@ -455,7 +491,7 @@ def phase_kernels(ctx):
         log(f"kernels: {tag}: fp32 err {e32:.2e}, bf16 err {e16:.2e}; "
             f"bf16 {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
             f"ms, bound {b_ms:.4f} ms ({rows[name][-1]['bound_by']}), exps "
-            f"{exp_ms(BATCH, heads, l, s):.4f} ms")
+            f"{exp_ms(batch, heads, l, s):.4f} ms")
         if name == "K2":
             log_option_times(tag, timer, qb, kb, vb)
         del q, k, v, qb, kb, vb, q16, k16, v16, w, out, want
@@ -483,8 +519,8 @@ def phase_kernels(ctx):
 
     for kern in ("K1", "K2", "K1 sd21", "K2 sd21"):
         tot = summary(rows[kern])
-        exps = sum(exp_ms(BATCH, r["H"], r["L"], r["S"]) * r["per_unet_call"]
-                   for r in rows[kern])
+        exps = sum(exp_ms(r["B"], r["H"], r["L"], r["S"])
+                   * r["per_unet_call"] for r in rows[kern])
         log(f"kernels: {kern}, the {PER_UNET} launches of one UNet call: "
             f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, sdpa "
             f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms, exps "
@@ -499,12 +535,30 @@ def phase_kernels(ctx):
                 f"cross-attentions of one UNet call: {tot['ms']:.4f} ms, "
                 f"plain {tot['plain_ms']:.4f} ms, sdpa "
                 f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
+    # IP-Adapter: the decoupled attentions of one 512^2 UNet call a adapter
+    # at each token count, and the tower's and the Resampler's a request
+    for s_len in IP_TOKENS:
+        tot = summary([r for r in rows["K2 ip"]
+                       if r["S"] == s_len and r["L"] <= LEVELS[0][0]])
+        log(f"kernels: K2 ip at S={s_len}, the {PER_UNET} decoupled "
+            f"attentions of one 512^2 UNet call (one adapter): "
+            f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, sdpa "
+            f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
+            f"({tot['bound_by']})")
+    for name, what in (("K2 ip tower", "image-tower layers"),
+                       ("K2 ip resampler", "Resampler layers")):
+        tot = summary(rows[name])
+        log(f"kernels: {name}, the {rows[name][0]['per_unet_call']} "
+            f"{what} of one request: {tot['ms']:.4f} ms, plain "
+            f"{tot['plain_ms']:.4f} ms, sdpa {tot['library_ms']:.4f} ms, "
+            f"bound {tot['bound_ms']:.4f} ms ({tot['bound_by']})")
     ctx["kernels"] = {
         "K1": dict(summary(rows["K1"]), err=errs["K1"],
                    shapes=rows["K1"] + rows["K1 chunked"] + rows["K1 sd21"]),
         "K2": dict(summary(rows["K2"]), err=errs["K2"],
                    shapes=rows["K2"] + rows["K2 cross"] + rows["K2 chunked"]
-                   + rows["K2 sd21"]),
+                   + rows["K2 sd21"] + rows["K2 ip"] + rows["K2 ip tower"]
+                   + rows["K2 ip resampler"]),
         "K3": k3_checks(dev, g, timer, sdpa),
     }
     ctx["kernels"].update(conv_checks(dev, g, timer))
@@ -890,12 +944,16 @@ def _reset_counts():
 
 
 def want_launches(cfg, size, calls, spatial, conv_impl, hires_calls=0,
-                  text_s=TEXT, encodes=0, controlnets=0):
+                  text_s=TEXT, encodes=0, controlnets=0, ip_adapters=0,
+                  ip_once=0):
     """The exact launches of one request: ``encodes`` VAE encodes of a
     ``size`` image, ``calls`` UNet calls at ``size``, then ``hires_calls``
     at twice the size, one decode at the last size, on a context of
     ``text_s`` positions; each UNet call with ``controlnets`` ControlNet
-    calls, all of whose attentions (self and cross, no map) are K2's."""
+    calls, all of whose attentions (self and cross, no map) are K2's, and
+    one decoupled attention (K2) a cross-attention for each of
+    ``ip_adapters`` IP-Adapters; ``ip_once``: the K2 launches of the
+    image tower and the Resampler, once a request (``ip_tower_launches``)."""
     runs = [(size, calls)] + ([(2 * size, hires_calls)] if hires_calls
                               else [])
     n = calls + hires_calls
@@ -903,7 +961,8 @@ def want_launches(cfg, size, calls, spatial, conv_impl, hires_calls=0,
     cn_attn, cn_level0 = cn_attentions(cfg)
     want = {"K1": PER_UNET * n if spatial else 0,
             "K2": PER_UNET * n * (1 if spatial else 2)
-            + cn_attn * controlnets * n,
+            + cn_attn * controlnets * n + PER_UNET * ip_adapters * n
+            + ip_once,
             "K3": (LEVELS[0][2] + cn_level0 * controlnets) * hires_calls
             if level0 == K3_SHAPES[0][0] else 0,
             "K4": 0, "K5": 0, "K4b": 0,
@@ -925,6 +984,21 @@ def want_launches(cfg, size, calls, spatial, conv_impl, hires_calls=0,
         if conv_impl == "pallas":
             want["K4b"] = sum(jax_sends_to_k4b(sh[2], sh[3]) for sh in fused)
     return want
+
+
+def ip_tower_launches(variant, tower_layers, resampler_layers=2,
+                      cfg_pair=True):
+    """K2 launches of one IP unit's embeds from an image, once a request:
+    the tower's layers for the projected embeds (base, Light, Face), twice
+    all but the last for the Resampler's penultimate hidden states (the
+    image and the zero-pixel uncond, as the app always takes both), then
+    the Resampler's layers on the image's and, with CFG, the uncond's;
+    none for FaceID (convolutions only)."""
+    if variant == "faceid":
+        return 0
+    if variant != "resampler":
+        return tower_layers
+    return 2 * (tower_layers - 1) + (2 if cfg_pair else 1) * resampler_layers
 
 
 def _delta(after, before):
@@ -1134,6 +1208,7 @@ def phase_tiny(ctx):
             f"{ {k: v for k, v in want.items() if v} }")
     tiny_images_in(ctx, cfg, on)
     tiny_units(ctx, cfg, on)
+    tiny_ip(ctx, cfg, on)
 
 
 def _tiny_variants(cfg):
@@ -1399,6 +1474,171 @@ def tiny_units(ctx, cfg, on):
             f"{ {k: v for k, v in wants['cuda'].items() if v} }")
 
 
+# A tiny CLIP-vision tower (D = 16 a head, an instance of K2's)
+TINY_VISION = dict(image_size=28, patch_size=14, hidden_size=32,
+                   intermediate_size=64, num_layers=2, num_heads=2,
+                   projection_dim=16)
+
+
+def face_photo(side: int, seed: int) -> np.ndarray:
+    """A raw (side, side, 3) uint8 photo made with numpy from ``seed``."""
+    return np.round((synthetic_image(side, seed)[0] * 0.5 + 0.5) * 255.0
+                    ).astype(np.uint8)
+
+
+def ip_pipeline(manager, pipe_params, cfg, units, device, dtype):
+    """The first half of what ``inference()`` does for ``units``
+    (IP-Adapter units): each adapter's state by name, installed into a
+    copy of the UNet tree's containers. Returns (a pipeline on the copy,
+    the adapters' projections)."""
+    from diffusionspatialcontrol_tpu_torch.models import ip_adapter as ipa
+    from diffusionspatialcontrol_tpu_torch.pipeline.pipeline import (
+        StableDiffusionTorch,
+    )
+    from diffusionspatialcontrol_tpu_torch.text.tokenizer import (
+        HashTokenizer,
+        load_tokenizer,
+    )
+
+    states = [manager.get_ip_adapter_state(u.model, cfg.unet) for u in units]
+    unet = ipa.copy_tree_containers(pipe_params["unet"])
+    ads = ipa.load_ip_adapter(unet, cfg.unet, states, dtype, device)
+    pipe = StableDiffusionTorch(
+        cfg, {**pipe_params, "unet": unet}, device=device,
+        tokenizer=HashTokenizer() if cfg.name == "tiny" else load_tokenizer())
+    return pipe, ads
+
+
+def ip_extras(manager, pipe, units, ads):
+    """The second half, once a request: the embeds by the app's own
+    ``_ip_unit_embeds`` (the manager's image tower, face detector and
+    embedder) and ``build_ip_extras`` with CFG (batch 1)."""
+    from diffusionspatialcontrol_tpu_torch.app import api
+
+    embeds = [api._ip_unit_embeds(manager, u, ad)
+              for u, ad in zip(units, ads)]
+    masks = [None if u.mask is None else
+             torch.from_numpy(np.asarray(u.mask, np.float32)[None])
+             for u in units]
+    return pipe.build_ip_extras(
+        ads, [e for e, _ in embeds], scales=[u.scale for u in units],
+        masks=masks if any(m is not None for m in masks) else None,
+        uncond_image_embeds=[u for _, u in embeds])
+
+
+def tiny_ip(ctx, cfg, on):
+    """IP-Adapter units at tiny size, fp32, card against CPU with the same
+    weights (the adapters by name from ``random_state_dict``, a tiny image
+    tower, the tiny SCRFD detector with its top-1 fallback and a 512-wide
+    tiny ArcFace, copied from the CPU), photo, latents and seeds, all with
+    the two-phrase map: for each of the six names of the app's table two
+    units at once (that name's adapter on the right-half mask at 0.8, the
+    base adapter at 0.5), embedded as the app embeds them; then hires
+    64^2 -> 128^2 with the Plus adapter masked and the base adapter (the
+    tokens and masks reused at 128^2). Launches exact: K2 16 + 16 a
+    adapter per UNet call, plus the tower's and the Resampler's once a
+    request; K1 16 per UNet call. Each image must also differ from the
+    same request without units on the card. Tolerances as in
+    ``phase_tiny``."""
+    from diffusionspatialcontrol_tpu_torch.app import api
+    from diffusionspatialcontrol_tpu_torch.models import arcface as af
+    from diffusionspatialcontrol_tpu_torch.models import clip_vision as cv
+    from diffusionspatialcontrol_tpu_torch.models import face_detect as fd
+    from diffusionspatialcontrol_tpu_torch.pipeline.pipeline import (
+        StableDiffusionTorch,
+    )
+    from diffusionspatialcontrol_tpu_torch.text.tokenizer import HashTokenizer
+
+    cpu, dev = torch.device("cpu"), ctx["device"]
+    vcfg = cv.CLIPVisionConfig(**TINY_VISION)
+    acfg = dataclasses.replace(af.ARCFACE_TINY, embed_dim=512)
+    tower = cv.clip_vision_init(torch.Generator().manual_seed(4), vcfg,
+                                torch.float32, cpu)
+    det = fd.scrfd_init(torch.Generator().manual_seed(5), fd.FACEDETECT_TINY,
+                        torch.float32, cpu)
+    arc = af.arcface_init(torch.Generator().manual_seed(6), acfg,
+                          torch.float32, cpu)
+    managers, devices = {}, {"cpu": cpu, "cuda": dev}
+    for kind, move in (("cpu", lambda t: t),
+                       ("cuda", lambda t: _tree_to(t, dev))):
+        m = api.ModelManager(dtype=torch.float32, device=devices[kind])
+        m._adapters["image_encoder"] = (vcfg, move(tower))
+        m._adapters["face_aligner"] = fd.make_face_aligner(
+            move(det), fd.FACEDETECT_TINY, top1_fallback=True)
+        m._adapters["face_embedder"] = af.make_arcface_embedder(move(arc),
+                                                                acfg)
+        managers[kind] = m
+    photo = face_photo(96, 11)
+    mask = right_half_mask(64)[0]
+    lat = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 8, 8, 4)).astype(np.float32))
+    cases = [(name, [name, "IP-Adapter"], False)
+             for name in api.ModelManager._IP_VARIANTS]
+    cases.append(("hires 64^2 -> 128^2", ["IP-Adapter Plus", "IP-Adapter"],
+                  True))
+    gen = _gen_for("DPM++ 2M Karras", height=64, width=64,
+                   num_inference_steps=4, dtype=torch.float32)
+    for label, names, hires in cases:
+        units = [api.IPAdapterUnit(names[0], photo, mask=mask, scale=0.8),
+                 api.IPAdapterUnit(names[1], photo, scale=0.5)]
+        once = sum(ip_tower_launches(api.ModelManager._IP_VARIANTS[n],
+                                     vcfg.num_layers) for n in names)
+        out, calls, wants = {}, {}, {}
+        for kind in ("cpu", "cuda", "cuda without units"):
+            key = kind.split()[0]
+            device = devices[key]
+            before = _counts()
+            if kind == "cuda without units":
+                pipe, ex = StableDiffusionTorch(
+                    cfg, on[key], tokenizer=HashTokenizer(),
+                    device=device), None
+            else:
+                pipe, ads = ip_pipeline(managers[key], on[key], cfg, units,
+                                        device, torch.float32)
+                ex = ip_extras(managers[key], pipe, units, ads)
+            c, ids = pipe.encode_prompt([PROMPT], [NEG])
+            rb = pipe.encode_region([_masks(64, 64)], ids, 64, 64)
+            opts = None
+            if hires:
+                opts = {"scale": 2.0, "strength": 0.6,
+                        "region_state": ([_masks(64, 64)], ids, 1)}
+            with UNetCalls() as n:
+                res = pipe.txt2img(c, gen, latents=lat, region_biases=rb,
+                                   extras=ex, hires=opts)
+            got = _delta(_counts(), before)
+            calls[kind] = n.n
+            want = (want_launches(cfg, 64, n.n, True, "xla",
+                                  ip_adapters=0 if ex is None else 2,
+                                  ip_once=0 if ex is None else once)
+                    if device.type == "cuda" else dict.fromkeys(got, 0))
+            if got != want:
+                raise AssertionError(f"tiny IP {label} on {kind}: launches "
+                                     f"{got}, expected {want}")
+            out[kind], wants[kind] = res.cpu(), want
+        if len(set(calls.values())) != 1:
+            raise AssertionError(f"tiny IP {label}: UNet calls {calls}")
+        side = 128 if hires else 64
+        if out["cuda"].shape != (1, side, side, 3):
+            raise AssertionError(f"tiny IP {label}: image "
+                                 f"{out['cuda'].shape}")
+        err = check_close(f"tiny IP {label}", out["cuda"], out["cpu"], 0.0,
+                          2e-4)
+        u8 = [StableDiffusionTorch.to_uint8(out[k]).int()
+              for k in ("cuda", "cpu")]
+        u8_err = int((u8[0] - u8[1]).abs().max())
+        if u8_err > 1:
+            raise AssertionError(f"tiny IP {label}: uint8 differs by "
+                                 f"{u8_err}")
+        moved = float((out["cuda"] - out["cuda without units"]).abs().max())
+        if moved < 1e-3:
+            raise AssertionError(f"tiny IP {label}: the units moved the "
+                                 f"image by {moved:.2e} only")
+        log(f"tiny: IP {label} ({' + '.join(names)}): card vs CPU max abs "
+            f"err {err:.2e} (fp32), {u8_err} (uint8); the units move the "
+            f"image by {moved:.3f}; {calls['cuda']} UNet calls, launches "
+            f"{ {k: v for k, v in wants['cuda'].items() if v} }")
+
+
 def phase_main(ctx):
     from diffusionspatialcontrol_tpu_torch import GenerationConfig, sd15_config
     from diffusionspatialcontrol_tpu_torch.models.factory import (
@@ -1516,6 +1756,7 @@ def phase_main(ctx):
                                   seed=99, region_biases=rb1),
         "inpaint_spatial")
     main_units(ctx, pipe, cfg, gen, c1, rb1, ids1, state)
+    main_ip(ctx, pipe, cfg, gen, c1, rb1, ids1, state)
     main_other_models(ctx, gen, state, init, mask)
 
     log("main: p50 s/image after one warm-up: " + ", ".join(
@@ -1621,6 +1862,171 @@ def main_units(ctx, pipe, cfg, gen, c1, rb1, ids1, state):
             f"on uint8")
     for kind in runs:
         defer_profile(ctx, lambda k=kind: runs[k](99), kind)
+
+
+def main_ip(ctx, pipe, cfg, gen, c1, rb1, ids1, state):
+    """IP-Adapter requests on SD1.5 at full width, the spatial request's
+    settings, through a ``ModelManager``'s image tower (OpenCLIP ViT-H/14,
+    random bf16 weights), face detector (SCRFD at 640^2, fp32, with the
+    top-1 fallback: random weights detect nothing) and face embedder
+    (ArcFace iResNet-50 at 112^2, fp32), and the adapters' weights by name
+    (``random_state_dict``) installed into a copy of the UNet tree once:
+    ``spatial_ip`` ("IP-Adapter": 4 tokens from the tower's projected
+    embeds, uncond zeros), ``spatial_ip_plus_masked`` ("IP-Adapter Plus":
+    the Resampler's 16 tokens from the tower's penultimate hidden states,
+    uncond those of zero pixels, on the right-half mask), ``faceid`` ("IP-
+    Adapter FaceID" on a raw 512^2 photo: detect, align, embed) and
+    ``hires_ip`` (512^2 -> 1024^2, strength 0.6, the base unit on the mask:
+    the gate downsampled at L = 16384 and K2 at S = 4 there). Each request
+    embeds its image and builds its tokens anew; exact UNet calls and
+    launches (the tower's and the Resampler's once a request), images
+    that differ from the spatial request's, denoiser calls under
+    ``NoHostReads`` (the gates are downsampled on the card, once a request
+    and length); ``spatial_ip_plus_masked`` and ``hires_ip`` profiled once
+    by their kernels at the end of the run, then the launches the gate
+    cache saves (``ip_gate_cache_launches``)."""
+    from diffusionspatialcontrol_tpu_torch.app import api
+    from diffusionspatialcontrol_tpu_torch.models.factory import param_count
+    from diffusionspatialcontrol_tpu_torch.pipeline.pipeline import to_uint8
+
+    dev = pipe.device
+    t0 = time.perf_counter()
+    manager = api.ModelManager()
+    manager.register_face_detector(top1_fallback=True)
+    manager.register_face_embedder()
+    enc_cfg, enc = manager.get_image_encoder()
+    det = manager.get_face_aligner()
+    emb = manager.get_face_embedder()
+    torch.cuda.synchronize()
+    log(f"main: image tower ViT-H/14 {param_count(enc) / 1e6:.1f} M "
+        f"parameters (bf16), SCRFD at {640}^2 and ArcFace iResNet-50 (fp32), "
+        f"random from the manager's seed 0, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    size = gen.height  # 512
+    ref = synthetic_image(size, 7)[0] * 0.5 + 0.5
+    photo = face_photo(size, 9)
+    mask = right_half_mask(size)[0]
+    crop = det(photo)
+    if crop is None or crop.shape != (112, 112, 3) or \
+            emb(crop).shape != (512,):
+        raise AssertionError("main: the face detector and embedder gave no "
+                             "512-d embedding")
+    units = {
+        "spatial_ip": [api.IPAdapterUnit("IP-Adapter", ref)],
+        "spatial_ip_plus_masked": [api.IPAdapterUnit("IP-Adapter Plus", ref,
+                                                     mask=mask)],
+        "faceid": [api.IPAdapterUnit("IP-Adapter FaceID", photo)],
+        "hires_ip": [api.IPAdapterUnit("IP-Adapter", ref, mask=mask)],
+    }
+    hires = {"scale": HIRES / size, "strength": 0.6,
+             "region_state": ([state], ids1, 1)}
+    hires_steps = int(STEPS * hires["strength"])
+    params = {k: v for k, v in pipe.params.items()}
+    pipes, runs = {}, {}
+    for kind, us in units.items():
+        t0 = time.perf_counter()
+        ip_pipe, ads = ip_pipeline(manager, params, cfg, us, dev,
+                                   torch.bfloat16)
+        torch.cuda.synchronize()
+        log(f"main: {kind}: {us[0].model} ({ads[0].variant}, "
+            f"{ads[0].num_tokens} tokens) installed into a copy of the UNet "
+            f"tree in {time.perf_counter() - t0:.3f} s")
+        pipes[kind] = ip_pipe
+        runs[kind] = (lambda seed, p=ip_pipe, us=us, ads=ads,
+                      hr=hires if kind == "hires_ip" else None:
+                      p.txt2img(c1, gen, seed=seed, region_biases=rb1,
+                                extras=ip_extras(manager, p, us, ads),
+                                hires=hr))
+    seeds = [0, 1, 2]
+    for kind in runs:
+        variant = api.ModelManager._IP_VARIANTS[units[kind][0].model]
+        hr = hires_steps if kind == "hires_ip" else 0
+        serve(ctx, kind, runs[kind], seeds, STEPS + hr,
+              want_launches(cfg, size, STEPS, True, "xla", hr,
+                            ip_adapters=1,
+                            ip_once=ip_tower_launches(variant,
+                                                      enc_cfg.num_layers)),
+              HIRES if hr else size, strict=True)
+        # serve counted from 0: the K2 launches of this request type's runs
+        # at IP-Adapter's shapes, by (L, S, D)
+        ip_shapes = {k: v for k, v in sorted(_wrappers()["K2"].shapes.items())
+                     if k[1] in IP_TOKENS + (IP_TOWER[1], IP_RESAMPLER[2])}
+        log(f"main: {kind}: K2 launches at IP-Adapter's (L, S, D) over its "
+            f"{len(seeds)} requests: {ip_shapes}")
+    plain = to_uint8(pipe.txt2img(c1, gen, seed=0, region_biases=rb1)).cpu()
+    for kind in ("spatial_ip", "spatial_ip_plus_masked", "faceid"):
+        got = to_uint8(runs[kind](0)).cpu().int()
+        moved = int((got - plain.int()).abs().max())
+        if moved == 0:
+            raise AssertionError(f"main: {kind} gave the spatial image")
+        halves = [float((got - plain.int())[:, :, sl].abs().float().mean())
+                  for sl in (slice(0, size // 2), slice(size // 2, size))]
+        log(f"main: {kind} seed 0 against spatial seed 0: max abs {moved} "
+            f"on uint8, mean {halves[0]:.2f} on the left half and "
+            f"{halves[1]:.2f} on the right (the mask's) half")
+    for kind in ("spatial_ip_plus_masked", "hires_ip"):
+        defer_profile(ctx, lambda k=kind: runs[k](99), kind)
+    unet_p = pipes["spatial_ip_plus_masked"].params["unet"]
+    ctx.setdefault("deferred", []).append(
+        lambda: ip_gate_cache_launches(unet_p, cfg, mask, size))
+
+
+def ip_gate_cache_launches(unet_p, cfg, mask, size):
+    """The kernel launches the gate cache saves: one UNet call at the
+    ``spatial_ip_plus_masked`` shapes (CFG batch 2, 16 tokens, the mask)
+    counted by the profiler with a cache that keeps nothing (every
+    cross-attention downsamples the mask, as it would without the cache),
+    with an empty one (the request's first call) and with the one that call
+    filled (every later call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffusionspatialcontrol_tpu_torch.models.unet import (
+        UNetCond,
+        unet_apply,
+    )
+
+    class KeepsNothing(dict):
+        def __setitem__(self, key, value):
+            pass
+
+    g = torch.Generator("cuda").manual_seed(0)
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    lat = size // 8
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf16)
+
+    x = randn(2, lat, lat, cfg.unet.in_channels)
+    t = torch.full((2,), 500.0, device=dev)
+    gate = torch.from_numpy(np.asarray(mask, np.float32)[None]).to(dev)
+    cond = UNetCond(context=randn(2, 77, cfg.unet.cross_attention_dim),
+                    ip_tokens=(randn(2, 16, cfg.unet.cross_attention_dim),),
+                    ip_scales=(1.0,), ip_masks=(gate.expand(2, -1, -1),))
+
+    def launches(c):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            unet_apply(unet_p, cfg.unet, x, t, c)
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+
+    uncached = launches(dataclasses.replace(cond,
+                                            ip_mask_cache=KeepsNothing()))
+    first = launches(cond)
+    later = launches(cond)
+    keys = sorted(cond.ip_mask_cache)
+    if not uncached > first > later or keys != [
+            (0, (lat >> i) ** 2) for i in (3, 2, 1, 0)]:
+        raise AssertionError(f"main: ip gate cache: launches {uncached} "
+                             f"uncached, {first} first, {later} later; "
+                             f"keys {keys}")
+    saved = STEPS * (uncached - later) - (first - later)
+    log(f"main: ip gate cache: one spatial_ip_plus_masked UNet call "
+        f"launches {uncached} kernels without the cache, {first} as a "
+        f"request's first call, {later} as a later one: the cache saves "
+        f"{saved} launches a {STEPS}-call request")
 
 
 def serve(ctx, kind, run, seeds, calls, want, side, strict=False):
@@ -1833,7 +2239,10 @@ def phase_app(ctx):
     5. the spatial request with a ControlNet unit ("Canny": zero heads, so
        its PNG must equal request 1's bit for bit; K2 + 350) and with a
        T2I-Adapter unit (random: finite and another image), each on a
-       256^2 uint8 control image sent as a nested list;
+       256^2 uint8 control image sent as a nested list; then with an
+       IP-Adapter unit ("IP-Adapter", a 224^2 reference image as a nested
+       list; K2 + 400 + 32), and with the same unit at scale 0, whose PNG
+       must equal request 1's bit for bit;
     6. ``/warmup`` with the two 512^2 batch-1 configs of
        ``default_warmup_configs("sd15")`` (with and without a map).
 
@@ -2059,6 +2468,34 @@ def phase_app(ctx):
         f"{np.abs(timg.astype(int) - want_img).max()} from the spatial "
         f"image on uint8")
 
+    # 5b. an IP-Adapter unit by name (its weights random_state_dict's, the
+    # manager's ViT-H/14 tower built at first use) with a 224^2 reference
+    # image in [0, 1] as a nested list: inference()'s PNG bit for bit; the
+    # same unit at scale 0 gives the spatial request's PNG bit for bit
+    # (the decoupled attention is added as out + 0 * ip_out)
+    ip_unit = {"model": "IP-Adapter", "image": (
+        synthetic_image(224, 7)[0] * 0.5 + 0.5).round(4).tolist()}
+    ip_post = {**base, "ip_adapter_units": [ip_unit]}
+    ip_want = want_launches(cfg, 512, STEPS, True, "xla", ip_adapters=1,
+                            ip_once=ip_tower_launches("linear", 32))
+    iimg, _, idt = post("IP-Adapter unit", "/generate", ip_post, STEPS,
+                        ip_want, 1)
+    same("IP-Adapter unit", iimg, direct(ip_post, "IP-Adapter unit")[0])
+    if np.array_equal(iimg, want_img):
+        raise AssertionError("app: the IP-Adapter unit left the spatial "
+                             "image as it was")
+    zimg, _, zdt = post("IP-Adapter unit at scale 0", "/generate", {
+        **base, "ip_adapter_units": [{**ip_unit, "scale": 0.0}]}, STEPS,
+        ip_want, 1)
+    if not np.array_equal(zimg, want_img):
+        raise AssertionError(
+            f"app: an IP-Adapter unit at scale 0 changed the spatial image "
+            f"(max abs {np.abs(zimg.astype(int) - want_img).max()})")
+    log(f"app: IP-Adapter unit {idt:.3f} s (the first builds the image "
+        f"tower), max abs {np.abs(iimg.astype(int) - want_img).max()} from "
+        f"the spatial image on uint8; at scale 0 {zdt:.3f} s, its PNG the "
+        f"spatial request's bit for bit")
+
     # 6. /warmup with the 512^2 batch-1 buckets
     configs = [dict(c) for c in api.default_warmup_configs("sd15")
                if c["width"] == 512 and c["num_images_per_prompt"] == 1]
@@ -2126,6 +2563,8 @@ def run_deferred_profiles(ctx):
         profile_request(run, kind, ctx["p50"][kind], host_ops=host_ops)
     log(f"profiles: {len(profiles)} requests profiled in "
         f"{time.perf_counter() - t0:.1f} s")
+    for fn in ctx.pop("deferred", []):
+        fn()
     run, kind, _ = profiles[0]
     seconds = []
     for _ in range(5):
@@ -2225,9 +2664,10 @@ def kernels_line(ctx):
     return json.dumps({"kernels": out})
 
 
-def run_tree(tree: str, phases: str) -> int:
+def run_tree(tree: str, phases: str, no_profiles: bool) -> int:
     """``python3 chip_smoke.py --phases ...`` in ``tree``, with this file's
-    ColdTimer in place of that tree's own."""
+    ColdTimer in place of that tree's own (and without its deferred
+    profiles when ``no_profiles``)."""
     here = os.path.abspath(__file__)
     code = (
         "import importlib.util, sys\n"
@@ -2236,6 +2676,8 @@ def run_tree(tree: str, phases: str) -> int:
         "spec.loader.exec_module(timer)\n"
         "import chip_smoke\n"
         "chip_smoke.ColdTimer = timer.ColdTimer\n"
+        + ("chip_smoke.run_deferred_profiles = lambda ctx: None\n"
+           if no_profiles else "") +
         f"sys.exit(chip_smoke.main(['--phases', {phases!r}]))\n")
     log(f"chip_smoke: {tree}/chip_smoke.py --phases {phases}, timed with "
         f"the ColdTimer of {here}")
@@ -2251,6 +2693,10 @@ def main(argv=None) -> int:
                     "example a parent commit unpacked with git archive) "
                     "with this file's ColdTimer, so that the kernel times "
                     "of two trees come from one timer")
+    ap.add_argument("--no-profiles", action="store_true",
+                    help="skip the profiles queued for the end of the run "
+                    "(the p50s of two trees, one after the other, in one "
+                    "call)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -2262,7 +2708,7 @@ def main(argv=None) -> int:
               "the card and has nothing to run here", file=sys.stderr)
         return 1
     if args.tree:
-        return run_tree(args.tree, args.phases)
+        return run_tree(args.tree, args.phases, args.no_profiles)
     import diffusionspatialcontrol_tpu_torch  # noqa: F401  (fails outside the repo)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2282,7 +2728,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         log(f"phase {name}: ok in {time.perf_counter() - t0:.1f} s "
             f"({time.perf_counter() - t_all:.1f} s since the start)")
-    if ctx.get("profiles"):
+    if ctx.get("profiles") and not args.no_profiles:
         with torch.inference_mode():
             run_deferred_profiles(ctx)
         torch.cuda.synchronize()

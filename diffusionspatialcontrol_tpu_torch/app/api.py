@@ -6,7 +6,8 @@ device; ``inference()`` takes the app's whole parameter surface (prompt and
 negative, model, sampler name of the app's table, steps, CFG, size, seeds,
 region-map state, img2img / inpaint, hires fix, clip-skip, prompt mode,
 latent previews, the timeout watchdog, chunked and cancellable runs,
-multi-prompt grids, ControlNet and T2I-Adapter units) and routes it to
+multi-prompt grids, ControlNet, T2I-Adapter and IP-Adapter units) and
+routes it to
 ``StableDiffusionTorch`` as the JAX package routes it to
 ``StableDiffusionTPU``, with every check in the same order, so that a
 request the JAX package refuses gets the same error here.
@@ -14,15 +15,17 @@ request the JAX package refuses gets the same error here.
 A unit's model name that is not an existing path gets random weights from
 the port's own generator (seed 0): a ControlNet with zero heads (a no-op,
 as in the JAX package) and a random T2I-Adapter (other values than the JAX
-package's ``PRNGKey(0)`` init).
+package's ``PRNGKey(0)`` init). An IP-Adapter name gets the JAX package's
+own synthetic state dict (``ip_adapter.random_state_dict``, numpy, the same
+weights); the CLIP-vision tower and the face networks (when registered
+without a path) random weights from the port's generator.
 
 Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item where the JAX package would first use them: IP-Adapter units,
-the CLIP-vision encoder and the face models (item 16), loading
-checkpoints, unit weights from disk, LoRAs and textual-inversion embeddings
-(item 17), the speed modes cfg-tail, DeepCache, bottleneck and TGATE (item
-18) and the control preprocessors (item 20). The IP-Adapter unit
-dataclass is ported as data, so that the server parses it.
+ROADMAP item where the JAX package would first use them: loading
+checkpoints, unit, image-encoder and face-network weights from disk, LoRAs
+and textual-inversion embeddings (item 17), the speed modes cfg-tail,
+DeepCache, bottleneck and TGATE (item 18) and the control preprocessors
+(item 20).
 """
 
 from __future__ import annotations
@@ -46,14 +49,14 @@ from ..config import (
 )
 from ..device import resolve_device
 from ..models import factory
+from ..models import ip_adapter as ipa
 from ..models.controlnet import controlnet_init
 from ..models.t2i_adapter import t2i_adapter_init
 from ..ops.resize import resize_latents
-from ..pipeline.pipeline import DenoiseExtras, StableDiffusionTorch
+from ..pipeline.pipeline import DenoiseExtras, StableDiffusionTorch, on_device
 from ..text.tokenizer import load_tokenizer
 from ..utils.profiling import PhaseTimer, Watchdog
 
-_IP = "IP-Adapter (ROADMAP item 16)"
 _LOADING = ("loading checkpoints, LoRAs and textual-inversion embeddings "
             "(ROADMAP item 17)")
 _PREPROCESSORS = "the control preprocessors (ROADMAP item 20)"
@@ -98,8 +101,9 @@ class T2IAdapterUnit:
 @dataclasses.dataclass
 class IPAdapterUnit:
     """One IP-Adapter unit (reference: app.py:1021-1096): a reference
-    ``image`` or precomputed ``image_embeds``. Data only until ROADMAP
-    item 16."""
+    ``image`` (embedded by the registered CLIP-vision tower, or for FaceID
+    by the face embedder, after the face detector when one is registered)
+    or precomputed ``image_embeds``."""
 
     model: str  # variant name in registry.IP_ADAPTER_MODELS or a path
     image: Optional[np.ndarray] = None  # (H, W, 3) reference image
@@ -108,7 +112,8 @@ class IPAdapterUnit:
     mask: Optional[np.ndarray] = None  # (H, W) spatial gate, 1 = active
     invert_mask: bool = False  # use 1 - mask
     uncond_image_embeds: Optional[np.ndarray] = None
-    face_embedder: Optional[Any] = None
+    face_embedder: Optional[Any] = None  # a callable crop -> (512,) in
+    # place of the manager's embedder
 
 
 class ModelManager:
@@ -132,6 +137,8 @@ class ModelManager:
         self._tokenizers: Dict[str, Any] = {}
         self._controlnets: Dict[str, Dict[str, Any]] = {}
         self._adapters: Dict[str, Dict[str, Any]] = {}
+        # the IP-Adapter networks' configs, None until registered
+        self._face_cfg = self._detector_spec = self._image_encoder_cfg = None
 
     def register(self, name: str, path: str,
                  model_cfg: Optional[ModelConfig] = None):
@@ -215,21 +222,97 @@ class ModelManager:
                 self._generator(), cfg, dtype=self.dtype, device=self.device)
         return self._adapters[name_or_path]
 
+    _IP_VARIANTS = {
+        "IP-Adapter": "linear",
+        "IP-Adapter Light": "linear",
+        "IP-Adapter Face": "mlp",
+        "IP-Adapter FaceID": "faceid",
+        "IP-Adapter Plus": "resampler",
+        "IP-Adapter Plus Face": "resampler",
+    }
+
     def get_ip_adapter_state(self, name_or_path: str, unet_cfg):
-        raise _not_ported(_IP)
+        """The {image_proj, ip_adapter} numpy state dict of one adapter,
+        cached: a name that is not an existing file gets the JAX package's
+        synthetic weights of its variant (the base layout for an unknown
+        name), with the image tower's widths; weights from a file wait for
+        ROADMAP item 17."""
+        key = f"ip::{name_or_path}"
+        if key not in self._adapters:
+            if os.path.isfile(name_or_path):
+                ipa.load_ip_adapter_file(name_or_path)  # raises: item 17
+            variant = self._IP_VARIANTS.get(name_or_path, "linear")
+            enc_cfg, _ = self.get_image_encoder()
+            embed_dim = (enc_cfg.hidden_size if variant == "resampler"
+                         else enc_cfg.projection_dim)
+            self._adapters[key] = ipa.random_state_dict(
+                unet_cfg, variant, seed=0, embed_dim=embed_dim)
+        return self._adapters[key]
 
     def register_face_embedder(self, path: Optional[str] = None, cfg=None):
-        raise _not_ported(_IP)
+        """The FaceID identity embedder: an ArcFace iResNet
+        (``models/arcface.py``) with random weights at ``cfg`` (the full
+        iResNet-50 by default), fp32 on the manager's device. Without a
+        registration the deterministic stub (``ops/face_embed.py``) embeds.
+        Weights from ``path`` wait for ROADMAP item 17."""
+        from ..models.arcface import ArcFaceConfig
+
+        if path:
+            raise _not_ported(f"face-embedder weights from {path!r}: "
+                              + _LOADING)
+        self._face_cfg = cfg or ArcFaceConfig()
+        self._adapters.pop("face_embedder", None)
 
     def get_face_embedder(self):
-        raise _not_ported(_IP)
+        """Callable (H, W, 3) face crop -> (512,) L2-normalized embedding
+        (insightface's ``normed_embedding`` contract)."""
+        if "face_embedder" in self._adapters:
+            return self._adapters["face_embedder"]
+        if self._face_cfg is None:
+            from ..ops.face_embed import embed_face
+
+            return embed_face
+        from ..models.arcface import arcface_init, make_arcface_embedder
+
+        params = arcface_init(self._generator(), self._face_cfg,
+                              torch.float32, self.device)
+        fn = make_arcface_embedder(params, self._face_cfg)
+        self._adapters["face_embedder"] = fn
+        return fn
 
     def register_face_detector(self, path: Optional[str] = None, cfg=None,
                                top1_fallback: bool = False):
-        raise _not_ported(_IP)
+        """The FaceID face detector and aligner: an SCRFD-class network
+        (``models/face_detect.py``) with random weights at ``cfg`` (its
+        640^2 default), fp32 on the manager's device. Once registered,
+        FaceID units detect, align and then embed the raw photo; without
+        one the image is taken as an aligned crop. ``top1_fallback``: the
+        best anchor when none clears the threshold (random weights detect
+        nothing). Weights from ``path`` wait for ROADMAP item 17."""
+        from ..models.face_detect import FaceDetectConfig
+
+        if path:
+            raise _not_ported(f"face-detector weights from {path!r}: "
+                              + _LOADING)
+        self._detector_spec = (cfg or FaceDetectConfig(), top1_fallback)
+        self._adapters.pop("face_aligner", None)
 
     def get_face_aligner(self):
-        raise _not_ported(_IP)
+        """Callable raw photo -> aligned (112, 112, 3) crop of the top face
+        (None when no face is found), or None when no detector is
+        registered."""
+        if "face_aligner" in self._adapters:
+            return self._adapters["face_aligner"]
+        if self._detector_spec is None:
+            return None
+        from ..models.face_detect import make_face_aligner, scrfd_init
+
+        cfg, top1 = self._detector_spec
+        params = scrfd_init(self._generator(), cfg, torch.float32,
+                            self.device)
+        fn = make_face_aligner(params, cfg, top1_fallback=top1)
+        self._adapters["face_aligner"] = fn
+        return fn
 
     def register_preprocessor(self, name: str, path: Optional[str] = None,
                               cfg=None, detect_resolution: int = 368):
@@ -239,10 +322,30 @@ class ModelManager:
         raise _not_ported(_PREPROCESSORS)
 
     def register_image_encoder(self, path: Optional[str] = None, cfg=None):
-        raise _not_ported(_IP)
+        """The IP-Adapter image encoder's config (``CLIPVisionConfig``,
+        ViT-H/14 by default); weights from ``path`` wait for ROADMAP item
+        17."""
+        if path:
+            raise _not_ported(f"image-encoder weights from {path!r}: "
+                              + _LOADING)
+        self._image_encoder_cfg = cfg
+        self._adapters.pop("image_encoder", None)
 
     def get_image_encoder(self):
-        raise _not_ported(_IP)
+        """(CLIPVisionConfig, params) of the IP-Adapter image encoder:
+        random weights from the port's generator, in the manager's dtype on
+        its device, built at first use."""
+        if "image_encoder" not in self._adapters:
+            from ..models.clip_vision import (
+                CLIPVisionConfig,
+                clip_vision_init,
+            )
+
+            cfg = self._image_encoder_cfg or CLIPVisionConfig()
+            self._adapters["image_encoder"] = (cfg, clip_vision_init(
+                self._generator(), cfg, dtype=self.dtype,
+                device=self.device))
+        return self._adapters["image_encoder"]
 
 
 def _to_host_u8(images) -> np.ndarray:
@@ -281,7 +384,7 @@ def inference(
     hires_sampler: Optional[str] = None,  # sampler for the hires pass only
     hires_region: bool = True,  # region control in the hires pass (the
     # map is re-encoded at the target size)
-    # conditioning units (IP-Adapter: ROADMAP item 16)
+    # conditioning units
     controlnet_units: Sequence[ControlNetUnit] = (),
     t2i_units: Sequence[T2IAdapterUnit] = (),
     ip_adapter_units: Sequence[IPAdapterUnit] = (),
@@ -370,8 +473,17 @@ def inference(
     if grid_prompts is None and isinstance(init_image, (list, tuple)):
         init_image = init_image[0]
 
+    loaded_ip = None
     if ip_adapter_units:
-        raise _not_ported(_IP)
+        # the adapters' K/V weights go into a copy of the UNet tree's
+        # containers (the tensors are shared), so the manager's cached tree
+        # stays as it was
+        states = [manager.get_ip_adapter_state(u.model, model_cfg.unet)
+                  for u in ip_adapter_units]
+        unet_copy = ipa.copy_tree_containers(params["unet"])
+        loaded_ip = ipa.load_ip_adapter(unet_copy, model_cfg.unet, states,
+                                        dtype=dtype, device=manager.device)
+        params = {**params, "unet": unet_copy}
 
     pipe = StableDiffusionTorch(
         model_cfg, params, tokenizer=tokenizer, attn_impl=manager.attn_impl,
@@ -422,6 +534,7 @@ def inference(
     )
     extras: Optional[DenoiseExtras] = None
     cn_params = cn_imgs_raw = t2i_params = t2i_imgs_raw = None
+    ip_extras: Optional[DenoiseExtras] = None
     with timer.phase("conditioning"):
         if controlnet_units:
             cn_params = [
@@ -439,6 +552,38 @@ def inference(
             t2i_imgs_raw = [
                 _maybe_preprocess(manager, u) for u in t2i_units
             ]
+        if ip_adapter_units:
+            embeds, uncond_embeds = [], []
+            for u, ad in zip(ip_adapter_units, loaded_ip):
+                e, ue = _ip_unit_embeds(manager, u, ad)
+                if unit_fan > 1 and e.shape[0] == 1:
+                    # one reference image serves the whole fan-out
+                    e = torch.repeat_interleave(e, unit_fan, dim=0)
+                    ue = torch.repeat_interleave(ue, unit_fan, dim=0)
+                embeds.append(e)
+                uncond_embeds.append(ue)
+            # the tokens and masks do not depend on the resolution (a mask
+            # is downsampled at each attention): built once, the hires pass
+            # reuses them
+            ip_extras = pipe.build_ip_extras(
+                loaded_ip, embeds,
+                do_cfg=cfg_scale > 1.0,
+                scales=[u.scale for u in ip_adapter_units],
+                masks=(
+                    [
+                        None if u.mask is None
+                        else _unit_batch(
+                            1.0 - np.asarray(u.mask, np.float32)
+                            if u.invert_mask else u.mask,
+                            unit_fan,
+                        )
+                        for u in ip_adapter_units
+                    ]
+                    if any(u.mask is not None for u in ip_adapter_units)
+                    else None
+                ),
+                uncond_image_embeds=uncond_embeds,
+            )
 
         def build_unit_extras(gen_for):
             """The units' extras at gen_for's size. ControlNet images and
@@ -480,9 +625,16 @@ def inference(
                     ),
                     base=ex,
                 )
+            if ip_extras is not None:
+                ex = dataclasses.replace(
+                    ex or DenoiseExtras(),
+                    ip_tokens=ip_extras.ip_tokens,
+                    ip_scales=ip_extras.ip_scales,
+                    ip_masks=ip_extras.ip_masks,
+                )
             return ex
 
-        if controlnet_units or t2i_units:
+        if controlnet_units or t2i_units or ip_adapter_units:
             extras = build_unit_extras(gen)
     watchdog.check()
 
@@ -796,3 +948,64 @@ def _to_pm1(img: np.ndarray) -> np.ndarray:
     if img.dtype == np.uint8:
         return img.astype(np.float32) / 127.5 - 1.0
     return img.astype(np.float32)
+
+
+def _ip_unit_embeds(manager: ModelManager, unit: IPAdapterUnit, adapter):
+    """(cond_embeds, uncond_embeds) of one IP-Adapter unit on the manager's
+    device: ``image_embeds`` as given (a batch axis added to a vector, and
+    to a (P, D) Resampler input; uncond as given or zeros); FaceID (an
+    ``mlp`` adapter on 512 inputs) embeds the face, detected and aligned
+    first when a detector is registered, uncond zeros; the others run the
+    CLIP-vision tower, the Resampler on its penultimate hidden states with
+    uncond the hidden states of zero pixels (after normalization), the rest
+    on its projected embeds with uncond zeros."""
+    dev = manager.device
+    if unit.image_embeds is not None:
+        emb = on_device(unit.image_embeds, dev)
+        if emb.dim() == 1 or (adapter.variant == "resampler"
+                              and emb.dim() == 2):
+            emb = emb[None]
+        uncond = (on_device(unit.uncond_image_embeds, dev)
+                  if unit.uncond_image_embeds is not None
+                  else torch.zeros_like(emb))
+        if uncond.shape != emb.shape:
+            uncond = uncond[None]
+        return emb, uncond
+    if unit.image is None:
+        raise ValueError(
+            f"IP-Adapter unit {unit.model!r} needs image or image_embeds"
+        )
+
+    # the port's linear kernels are (out, in): FaceID's MLP takes 512
+    is_faceid = (adapter.variant == "mlp"
+                 and adapter.proj_params["ff_in"]["kernel"].shape[1] == 512)
+    if is_faceid:
+        face_img = unit.image
+        aligner = manager.get_face_aligner()
+        if aligner is not None:
+            face_img = aligner(np.asarray(face_img))
+            if face_img is None:
+                raise ValueError(
+                    f"IP-Adapter unit {unit.model!r}: no face detected in "
+                    "the reference image"
+                )
+        embedder = unit.face_embedder or manager.get_face_embedder()
+        emb = on_device(embedder(face_img), dev)[None]
+        return emb, torch.zeros_like(emb)
+
+    from ..models.clip_vision import clip_vision_apply, preprocess_image
+
+    enc_cfg, enc_params = manager.get_image_encoder()
+    pixels = preprocess_image(np.asarray(unit.image)[None],
+                              enc_cfg.image_size, device=dev)
+    hidden = adapter.variant == "resampler"
+    with torch.inference_mode():
+        emb = clip_vision_apply(enc_params, enc_cfg, pixels,
+                                output_hidden_state=hidden)
+        if hidden:
+            uncond = clip_vision_apply(enc_params, enc_cfg,
+                                       torch.zeros_like(pixels),
+                                       output_hidden_state=True)
+        else:
+            uncond = torch.zeros_like(emb)
+    return emb, uncond

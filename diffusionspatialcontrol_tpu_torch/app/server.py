@@ -545,11 +545,13 @@ def parse_args(argv=None):
                    metavar="NAME=WEIGHTS",
                    help="control-preprocessor weights (ROADMAP item 20)")
     p.add_argument("--image-encoder", metavar="WEIGHTS",
-                   help="CLIP-vision weights for IP-Adapter (ROADMAP "
-                   "item 16)")
+                   help="CLIP-vision weights for IP-Adapter (raises until "
+                   "ROADMAP item 17 loads weight files; without it the "
+                   "tower has random weights)")
     p.add_argument("--face-embedder", metavar="WEIGHTS",
-                   help="ArcFace weights for IP-Adapter FaceID (ROADMAP "
-                   "item 16)")
+                   help="ArcFace weights for IP-Adapter FaceID (raises "
+                   "until ROADMAP item 17; without it the stub embedder "
+                   "runs)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=7860)
     p.add_argument("--dtype", choices=["bf16", "f32"], default="bf16")

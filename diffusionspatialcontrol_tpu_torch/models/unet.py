@@ -18,10 +18,12 @@ CUDA tensors.
 The SD1.x (conv projections, quick_gelu CLIP) and SD2.x (linear
 projections, 64-wide heads) topologies and the 9-channel inpaint UNet
 (``in_channels=9``) run here, with ControlNet and T2I-Adapter residuals
-added where the JAX package adds them (``UNetCond``).
+added where the JAX package adds them, and IP-Adapter's decoupled
+cross-attention where a cross-attention carries ``"ip"`` weights
+(``UNetCond``; ``models/ip_adapter.py`` installs them).
 
-Not ported yet (passing them raises): FreeU, IP-Adapter, heatmaps, TGATE
-caching and DeepCache.
+Not ported yet (passing them raises): FreeU, heatmaps, TGATE caching and
+DeepCache.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch.nn.functional as F
 from ..config import UNetConfig
 from ..ops.kernels.flash_attention import flash_attention_nlhd
 from ..ops.kernels.region_attention import region_attention_nlhd
+from ..ops.resize import resize
 from .layers import (
     FUSED_CONV_IMPLS,
     check_conv_impl,
@@ -73,6 +76,16 @@ class UNetCond:
     controlnet_mid: Optional[torch.Tensor] = None
     # T2I-Adapter: one residual a down block, NHWC.
     t2i_residuals: Optional[Tuple[torch.Tensor, ...]] = None
+    # IP-Adapter: (B, n_tokens, cross_dim) image tokens a adapter, each
+    # adapter's scale (a Python float) and optional (B, Hm, Wm) fp32 gate.
+    ip_tokens: Optional[Tuple[torch.Tensor, ...]] = None
+    ip_scales: Optional[Tuple[float, ...]] = None
+    ip_masks: Optional[Tuple[Optional[torch.Tensor], ...]] = None
+    # The gates downsampled to each sequence length, keyed by (adapter,
+    # length): a request's denoiser passes one dict to every call, so each
+    # is computed once a request (the masks do not change between steps).
+    ip_mask_cache: Dict[Tuple[int, int], torch.Tensor] = dataclasses.field(
+        default_factory=dict)
 
 
 # ---------------------------------------------------------------------------
@@ -283,7 +296,48 @@ def _cross_attention(p, x, cond: UNetCond, level: int, heads, flash_opts):
                                     cond.region.sigma)
     else:
         out = flash_attention_nlhd(q, k, v, **flash_opts)
-    return linear(p["to_out"], _heads_merge(out))
+    out_h = _heads_merge(out)
+    # IP-Adapter's decoupled attention: the queries attend to each
+    # adapter's image tokens on their own, the result gated by the
+    # adapter's mask and added at its scale.
+    if cond.ip_tokens is not None and "ip" in p:
+        for i, (ip_tok, ip_p) in enumerate(zip(cond.ip_tokens, p["ip"])):
+            ip_k = _heads_split(linear(ip_p["to_k"], ip_tok), heads)
+            ip_v = _heads_split(linear(ip_p["to_v"], ip_tok), heads)
+            ip_out = _heads_merge(flash_attention_nlhd(q, ip_k, ip_v,
+                                                       **flash_opts))
+            scale = 1.0 if cond.ip_scales is None else cond.ip_scales[i]
+            if cond.ip_masks is not None and cond.ip_masks[i] is not None:
+                mask = _ip_gate(cond, i, x.shape[1])
+                ip_out = ip_out * mask[..., None].to(ip_out.dtype)
+            out_h = out_h + scale * ip_out
+    return linear(p["to_out"], out_h)
+
+
+def _ip_gate(cond: UNetCond, i: int, seq_len: int) -> torch.Tensor:
+    """Adapter ``i``'s mask at ``seq_len``, memoized in
+    ``cond.ip_mask_cache``."""
+    gate = cond.ip_mask_cache.get((i, seq_len))
+    if gate is None:
+        gate = cond.ip_mask_cache[(i, seq_len)] = _downsample_mask(
+            cond.ip_masks[i], seq_len)
+    return gate
+
+
+def _downsample_mask(mask: torch.Tensor, seq_len: int) -> torch.Tensor:
+    """A (B, Hm, Wm) mask as a flattened length-``seq_len`` gate (diffusers'
+    ``IPAdapterMaskProcessor.downsample``): an aspect-preserving bilinear
+    resize (``jax.image.resize``, antialiased) to h = round(Hm / ratio)
+    rows (Python's round, ties to even) and w = seq_len // h columns,
+    zero-padded or cut to ``seq_len``; fp32."""
+    b, hm, wm = mask.shape
+    ratio = (hm * wm / seq_len) ** 0.5
+    h = max(int(round(hm / ratio)), 1)
+    w = max(seq_len // h, 1)
+    m = resize(mask.float(), (b, h, w), "linear").reshape(b, h * w)
+    if h * w < seq_len:
+        m = F.pad(m, (0, seq_len - h * w))
+    return m[:, :seq_len]
 
 
 def _geglu_ff(p, x):
@@ -326,12 +380,14 @@ def unet_apply(params: Dict[str, Any], cfg: UNetConfig,
     ``cond``'s T2I residuals are added after the last layer of each down
     block (before its downsample, so the skip carries them), its ControlNet
     residuals to every skip after the down path and after the mid block's
-    second resnet, each cast to the activations' dtype at the add."""
+    second resnet, each cast to the activations' dtype at the add. Its
+    IP-Adapter tokens go to every cross-attention that carries ``"ip"``
+    weights, one decoupled attention (K2) a adapter."""
     if unsupported and any(v not in (None, False)
                            for v in unsupported.values()):
         raise NotImplementedError(
-            f"not ported yet: {sorted(unsupported)} (FreeU, IP-Adapter, "
-            f"DeepCache, TGATE and heatmaps come later)")
+            f"not ported yet: {sorted(unsupported)} (FreeU, DeepCache, "
+            f"TGATE and heatmaps: ROADMAP items 18 and 19)")
     conv_impl = check_conv_impl(conv_impl)
     flash_opts = flash_options(attn_impl)
     groups, eps_ = cfg.norm_num_groups, cfg.norm_eps

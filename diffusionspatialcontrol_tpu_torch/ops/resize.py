@@ -1,12 +1,15 @@
-"""Latent upscaling for hires fix (port of ``ops/resize.py``).
+"""``jax.image.resize`` in PyTorch, and latent upscaling for hires fix
+(port of ``ops/resize.py``).
 
 The reference's upscale-mode table (Latent bilinear / bicubic / nearest,
-each optionally antialiased). The JAX package resizes with
-``jax.image.resize``; this module reproduces it exactly, as a separable
-resize with the same weight matrices, because no ``F.interpolate`` call
-matches it for every mode: its "bicubic" is the Keys kernel with a = -0.75
-(JAX's is a = -0.5), and it clamps at the border where JAX renormalizes the
-weights that fall inside the image. A plain op, not a kernel.
+each optionally antialiased). The JAX package resizes latents, unit and
+IP-Adapter images, IP-Adapter masks and face crops with
+``jax.image.resize``; ``resize`` reproduces it, as a separable resize
+with the same weight matrices, because no ``F.interpolate`` call matches
+it for every mode: its "bicubic" is the Keys kernel with a = -0.75 (JAX's
+is a = -0.5), it clamps at the border where JAX renormalizes the weights
+that fall inside the image, and JAX antialiases by default. A plain op,
+not a kernel.
 """
 
 from __future__ import annotations
@@ -41,35 +44,73 @@ def parse_upscale_mode(name: str):
     return "bilinear", False
 
 
-def _kernel(method: str, x: np.ndarray) -> np.ndarray:
+def _kernel(method: str, x: torch.Tensor) -> torch.Tensor:
     if method == "linear":  # triangle
-        return np.maximum(0, 1 - np.abs(x))
+        return torch.clamp(1.0 - x.abs(), min=0.0)
     out = ((1.5 * x - 2.5) * x) * x + 1.0  # Keys cubic, a = -0.5
-    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
-    return np.where(x >= 2.0, 0.0, out)
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(out), out)
 
 
-def _weights(n_in: int, n_out: int, method: str, antialias: bool
-             ) -> np.ndarray:
-    """(n_out, n_in) float32 weights: ``jax.image``'s ``compute_weight_mat``
-    (half-pixel centres, the kernel widened when downsampling with
-    antialias, each row normalized over the taps inside the image)."""
-    f32 = np.float32
+def _weights(n_in: int, n_out: int, method: str, antialias: bool,
+             device=None) -> torch.Tensor:
+    """(n_out, n_in) float32 weights on ``device``: ``jax.image``'s
+    ``compute_weight_mat`` (half-pixel centres, the kernel widened when
+    downsampling with antialias, each row normalized over the taps inside
+    the image). Built with device ops from Python numbers, so that a
+    denoiser call that needs them copies nothing from the host."""
+    f32 = torch.float32
     inv_scale = 1.0 / (n_out / n_in)  # a Python float, as in jax.image
     kernel_scale = max(inv_scale, 1.0) if antialias else 1.0
-    sample = (np.arange(n_out, dtype=f32) + 0.5) * inv_scale - 0.5
-    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None])
-    w = _kernel(method, x / kernel_scale).astype(f32)
-    total = w.sum(axis=0, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(f32).eps),
-                 w / np.where(total != 0, total, 1), 0)
+    sample = (torch.arange(n_out, dtype=f32, device=device) + 0.5) \
+        * inv_scale - 0.5
+    x = (sample[None, :]
+         - torch.arange(n_in, dtype=f32, device=device)[:, None]).abs()
+    w = _kernel(method, x / kernel_scale)
+    total = w.sum(dim=0, keepdim=True)
+    eps = 1000.0 * float(torch.finfo(f32).eps)
+    w = torch.where(total.abs() > eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
     inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return np.where(inside[None, :], w, 0).T.astype(f32)
+    return torch.where(inside[None, :], w, torch.zeros_like(w)).T
 
 
 def _nearest_index(n_in: int, n_out: int) -> np.ndarray:
     offsets = (np.arange(n_out, dtype=np.float32) + 0.5) * n_in / n_out
     return np.floor(offsets.astype(np.float32)).astype(np.int64)
+
+
+_METHODS = {"linear": "linear", "bilinear": "linear", "trilinear": "linear",
+            "cubic": "cubic", "bicubic": "cubic", "tricubic": "cubic",
+            "nearest": "nearest"}
+
+
+def resize(x: torch.Tensor, shape, method: str = "linear",
+           antialias: bool = True) -> torch.Tensor:
+    """``jax.image.resize(x, shape, method, antialias)`` for floating
+    ``x`` of any layout: (H, W, C) images, (B, H, W, C) batches and
+    (B, H, W) masks alike. Every axis whose size changes is resized, one
+    after the other, with that axis's weight matrix ("linear" or "cubic";
+    ``antialias`` widens the kernel when shrinking, as JAX's default does)
+    or its half-pixel nearest index ("nearest")."""
+    method = _METHODS[method]
+    if len(shape) != x.dim():
+        raise ValueError(f"shape {tuple(shape)} has not the {x.dim()} axes "
+                         f"of x")
+    letters = "abcdefgh"[: x.dim()]
+    out = x
+    for axis, (n_in, n_out) in enumerate(zip(x.shape, shape)):
+        if n_in == n_out:
+            continue
+        if method == "nearest":
+            idx = torch.from_numpy(_nearest_index(n_in, n_out)).to(x.device)
+            out = out.index_select(axis, idx)
+            continue
+        wm = _weights(n_in, n_out, method, antialias, x.device).to(out.dtype)
+        dst = letters[:axis] + "z" + letters[axis + 1:]
+        out = torch.einsum(f"z{letters[axis]},{letters}->{dst}", wm, out)
+    return out
 
 
 def resize_latents(latents: torch.Tensor, new_h: int, new_w: int,
@@ -79,18 +120,5 @@ def resize_latents(latents: torch.Tensor, new_h: int, new_w: int,
     ``jax.image.resize(method, antialias)`` does; an unknown ``mode`` means
     bilinear, as in the JAX package."""
     b, h, w, c = latents.shape
-    method = _MODES.get(mode, "linear")
-    dev = latents.device
-    out = latents
-    for axis, (n_in, n_out) in ((1, (h, new_h)), (2, (w, new_w))):
-        if n_in == n_out:
-            continue
-        if method == "nearest":
-            idx = torch.from_numpy(_nearest_index(n_in, n_out)).to(dev)
-            out = out.index_select(axis, idx)
-        else:
-            wm = torch.from_numpy(_weights(n_in, n_out, method, antialias))
-            wm = wm.to(device=dev, dtype=out.dtype)
-            out = (torch.einsum("oi,biwc->bowc", wm, out) if axis == 1
-                   else torch.einsum("oi,bhic->bhoc", wm, out))
-    return out
+    return resize(latents, (b, new_h, new_w, c),
+                  _MODES.get(mode, "linear"), antialias)

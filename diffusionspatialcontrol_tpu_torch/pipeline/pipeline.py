@@ -1,5 +1,5 @@
-"""txt2img, img2img and inpaint with region control, ControlNet and
-T2I-Adapter units, hires fix and chunked sampling (port of
+"""txt2img, img2img and inpaint with region control, ControlNet,
+T2I-Adapter and IP-Adapter units, hires fix and chunked sampling (port of
 ``pipeline/pipeline.py``).
 
 ``StableDiffusionTorch`` is the counterpart of ``StableDiffusionTPU``:
@@ -9,9 +9,10 @@ the four schedules, VAE encode and decode and uint8 conversion; img2img
 from images (``encode_image`` then ``img2img``); inpaint on 4-channel
 UNets (the known region blended back at every denoiser call) and on
 9-channel inpaint UNets (mask and masked-image latents as extra input
-channels), with the asymmetric VAE's mask-conditioned decode; ControlNet
-and T2I-Adapter units (``build_controlnet_extras``, ``build_t2i_extras``,
-then ``extras=`` on every sampling method); hires fix (latent upscale, then
+channels), with the asymmetric VAE's mask-conditioned decode; ControlNet,
+T2I-Adapter and IP-Adapter units (``build_controlnet_extras``,
+``build_t2i_extras``, ``build_ip_extras``, then ``extras=`` on every
+sampling method); hires fix (latent upscale, then
 img2img on the latents at the target size, optionally with another sampler
 and schedule, the units' inputs rebuilt at that size); per-step latent
 history; and ``sample_chunked``, which returns to the caller between chunks
@@ -34,7 +35,7 @@ latents were passed. The streams differ from JAX's threefry streams; tests
 pass ``latents=`` and patch ``initial_noise``, ``seeded_normals`` and
 ``_solver_noise`` to compare the two packages.
 
-Not ported yet: ControlNet, T2I-Adapter, IP-Adapter and the speed modes.
+Not ported yet: the speed modes (ROADMAP item 18).
 """
 
 from __future__ import annotations
@@ -95,6 +96,16 @@ def controlnet_keep_schedule(steps: int, starts: Sequence[float],
     return keeps
 
 
+def on_device(x, device) -> torch.Tensor:
+    """A tensor or array on ``device``; numpy float64 becomes fp32, as
+    ``jnp.asarray`` makes it."""
+    if not isinstance(x, torch.Tensor):
+        x = np.asarray(x)
+        x = torch.from_numpy(np.ascontiguousarray(
+            x.astype(np.float32) if x.dtype == np.float64 else x))
+    return x.to(device)
+
+
 def _interleave_cfg(a: torch.Tensor) -> torch.Tensor:
     """[u0..uB, c0..cB] -> [u0, c0, u1, c1, ...] (the JAX package's CFG
     layout; per-sample outputs do not depend on batch order)."""
@@ -105,10 +116,9 @@ def _interleave_cfg(a: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass
 class DenoiseExtras:
-    """Per-generation conditioning the denoiser consumes: ControlNet and
-    T2I-Adapter units and the inpaint inputs (the JAX package's class also
-    carries IP-Adapter inputs, ROADMAP item 16). Tensors are CFG-doubled
-    ([uncond..., cond...]) where guidance needs it."""
+    """Per-generation conditioning the denoiser consumes: ControlNet,
+    T2I-Adapter and IP-Adapter units and the inpaint inputs. Tensors are
+    CFG-doubled ([uncond..., cond...]) where guidance needs it."""
 
     # ControlNet: parallel lists over units
     controlnet_params: Optional[List[Any]] = None
@@ -118,6 +128,11 @@ class DenoiseExtras:
     # T2I-Adapter: the residuals, computed once (CFG-doubled)
     t2i_residuals: Optional[Tuple[torch.Tensor, ...]] = None
     t2i_active: Optional[np.ndarray] = None  # (n_steps,) 0/1
+    # IP-Adapter: a adapter, its (B_cfg, n_tokens, cross_dim) tokens, its
+    # scale and its optional (B_cfg, Hm, Wm) mask
+    ip_tokens: Optional[Tuple[torch.Tensor, ...]] = None
+    ip_scales: Optional[Tuple[float, ...]] = None
+    ip_masks: Optional[Tuple[Optional[torch.Tensor], ...]] = None
     # 4-channel inpaint blend
     inpaint_mask: Optional[torch.Tensor] = None  # (B, h, w, 1), 1 = regenerate
     inpaint_image_latents: Optional[torch.Tensor] = None  # (B, h, w, 4)
@@ -159,7 +174,12 @@ def make_denoise_fn(
     with zeros. The units' residuals are summed in fp32 and rounded once at
     the add into the UNet. The cond embedding of each ControlNet's image
     depends on the image and the weights only, so it is computed once here
-    (``controlnet_cond_embedding``), not at every call."""
+    (``controlnet_cond_embedding``), not at every call.
+
+    ``extras`` (IP-Adapter): the tokens are cast to the compute dtype and,
+    with the masks, CFG-interleaved where their batch is the CFG batch; the
+    masks stay fp32, downsampled once a request to each attention's
+    sequence length (``UNetCond.ip_mask_cache``)."""
     do_cfg = guidance_scale > 1.0
     ex = extras or DenoiseExtras()
     dev = log_sigma_table.device
@@ -174,6 +194,14 @@ def make_denoise_fn(
 
     extra = (None if ex.extra_channels is None
              else _maybe(ex.extra_channels.to(compute_dtype)))
+    ip_tokens = ip_masks = None
+    if ex.ip_tokens is not None:
+        ip_tokens = tuple(_maybe(t.to(device=dev, dtype=compute_dtype))
+                          for t in ex.ip_tokens)
+    if ex.ip_masks is not None:
+        ip_masks = tuple(None if m is None else _maybe(m.to(dev))
+                         for m in ex.ip_masks)
+    ip_mask_cache = {}
     if region_biases is not None and region_biases[0].shape[-1] != \
             context.shape[1]:
         raise ValueError(
@@ -238,7 +266,9 @@ def make_denoise_fn(
             model_in = torch.cat([model_in, extra], dim=-1)
         region = (None if region_biases is None
                   else RegionState(region_biases, sigma))
-        cond = UNetCond(context=context, region=region)
+        cond = UNetCond(context=context, region=region, ip_tokens=ip_tokens,
+                        ip_scales=ex.ip_scales, ip_masks=ip_masks,
+                        ip_mask_cache=ip_mask_cache)
         if sig_steps is not None:
             idx = torch.argmin(torch.abs(sig_steps - sigma))
         for cn_p, emb, scales in units:
@@ -476,6 +506,40 @@ class StableDiffusionTorch:
         return dataclasses.replace(base or DenoiseExtras(),
                                    t2i_residuals=feats, t2i_active=active)
 
+    @torch.inference_mode()
+    def build_ip_extras(
+        self, adapters: Sequence, image_embeds: Sequence,
+        scales: Sequence[float], masks: Optional[Sequence] = None,
+        uncond_image_embeds: Optional[Sequence] = None, do_cfg: bool = True,
+        base: Optional[DenoiseExtras] = None) -> DenoiseExtras:
+        """IP-Adapter units: each adapter (``models.ip_adapter
+        .LoadedIPAdapter``) projects its image embeds ((B, D), or (B, P, D)
+        for the Resampler) to tokens, with CFG [uncond tokens, cond tokens]
+        (the uncond embeds as given, else zeros of the embeds); ``masks``:
+        per adapter an optional (B, H, W) gate, doubled with CFG. The tokens
+        and masks do not depend on the resolution, so a hires pass reuses
+        them."""
+        ip_tokens = []
+        for i, (ad, emb) in enumerate(zip(adapters, image_embeds)):
+            emb = on_device(emb, self.device)
+            tok = ad.project(emb)
+            if do_cfg:
+                u_emb = (on_device(uncond_image_embeds[i], self.device)
+                         if uncond_image_embeds is not None
+                         else torch.zeros_like(emb))
+                tok = torch.cat([ad.project(u_emb), tok], dim=0)
+            ip_tokens.append(tok)
+        mask_tuple = None
+        if masks is not None:
+            mask_tuple = tuple(
+                None if m is None
+                else torch.cat([on_device(m, self.device)]
+                               * (2 if do_cfg else 1))
+                for m in masks)
+        return dataclasses.replace(
+            base or DenoiseExtras(), ip_tokens=tuple(ip_tokens),
+            ip_scales=tuple(float(s) for s in scales), ip_masks=mask_tuple)
+
     # -- sampling -----------------------------------------------------------
 
     def _schedule(self, gen: GenerationConfig):
@@ -579,7 +643,7 @@ class StableDiffusionTorch:
         instead of the seeded draw; they are scaled by sqrt(sigma_0^2+1).
         The solver noise comes from the seeds either way.
         ``extras``: the units' inputs (``build_controlnet_extras``,
-        ``build_t2i_extras``).
+        ``build_t2i_extras``, ``build_ip_extras``).
 
         ``hires``: optional dict(scale=2.0, strength=0.6, steps=None,
         mode="bilinear", antialias=False, sampler=None, schedule=None,
@@ -590,10 +654,11 @@ class StableDiffusionTorch:
         schedule. ``region_state`` = (states, prompt ids,
         num_images_per_prompt) re-encodes the region map at the target
         size; without it the hires pass runs without region control. The
-        units' images and residuals are bound to the base size:
+        ControlNet images and T2I residuals are bound to the base size:
         ``rebuild_extras`` = fn(the hires pass's GenerationConfig) ->
-        ``DenoiseExtras`` rebuilds them for the hires pass, and unit extras
-        without it raise ``ValueError``. The ``uint8_output`` flag applies
+        ``DenoiseExtras`` rebuilds them for the hires pass, and such
+        extras without it raise ``ValueError``; IP-Adapter tokens and masks
+        pass to the hires pass as they are. The ``uint8_output`` flag applies
         to the hires pass's images.
 
         ``return_history``: also return the latents after every step,

@@ -9,7 +9,8 @@
 * port-only invariants on the tiny model: ``inference`` is ``txt2img`` plus
   ``to_uint8`` bit for bit, a grid sample draws its single request's noise
   and matches its image, the watchdog and a raising ``progress_cb`` stop a
-  run, and what is not ported yet raises naming its ROADMAP item.
+  run, an IP-Adapter request leaves the manager's UNet as it was, and what
+  is not ported yet raises naming its ROADMAP item.
 """
 
 import dataclasses
@@ -24,12 +25,20 @@ import chip_smoke
 from diffusionspatialcontrol_tpu import config as jcfg
 from diffusionspatialcontrol_tpu import registry as jregistry
 from diffusionspatialcontrol_tpu.app import api as japi
+from diffusionspatialcontrol_tpu.models import clip_vision as jclip_vision
+from diffusionspatialcontrol_tpu.models import ip_adapter as jipa
+from diffusionspatialcontrol_tpu.ops import face_embed as jface_embed
 from diffusionspatialcontrol_tpu.runtime import native as jnative
 from diffusionspatialcontrol_tpu.utils import profiling as jprofiling
 from diffusionspatialcontrol_tpu.utils import region_ui as jregion_ui
 from diffusionspatialcontrol_tpu_torch import config as tcfg
 from diffusionspatialcontrol_tpu_torch import registry as tregistry
 from diffusionspatialcontrol_tpu_torch.app import api as tapi
+from diffusionspatialcontrol_tpu_torch.models import arcface as tarcface
+from diffusionspatialcontrol_tpu_torch.models import clip_vision as tclip_vision
+from diffusionspatialcontrol_tpu_torch.models import factory as tfactory
+from diffusionspatialcontrol_tpu_torch.models import face_detect as tface_detect
+from diffusionspatialcontrol_tpu_torch.ops import face_embed as tface_embed
 from diffusionspatialcontrol_tpu_torch.parallel.batched import generate_grid
 from diffusionspatialcontrol_tpu_torch.pipeline import pipeline as tpipeline
 from diffusionspatialcontrol_tpu_torch.runtime import native as tnative
@@ -244,8 +253,8 @@ def _dtype_name(dt) -> str:
 
 
 def _summ(x):
-    """Arrays by (shape, dtype, sum); GenerationConfig by fields; callables
-    by kind; containers recursively."""
+    """Arrays by (shape, dtype, sum); GenerationConfig and DenoiseExtras by
+    fields; callables by kind; containers recursively."""
     if isinstance(x, torch.Tensor):
         return ("array", tuple(x.shape), _dtype_name(x.dtype),
                 round(x.double().sum().item(), 3))
@@ -257,6 +266,9 @@ def _summ(x):
             f.name: (_dtype_name(getattr(x, f.name)) if f.name == "dtype"
                      else getattr(x, f.name))
             for f in dataclasses.fields(x)})
+    if isinstance(x, (japi.DenoiseExtras, tapi.DenoiseExtras)):
+        return ("DenoiseExtras", {f.name: _summ(getattr(x, f.name))
+                                  for f in dataclasses.fields(x)})
     if isinstance(x, dict):
         return {k: _summ(v) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
@@ -368,12 +380,15 @@ def _recorder(log, xp, arrays):
 
         def _unit_images(self, name, gen, params, imgs, kw):
             """Logs the images' shapes and dtypes; their values go to
-            ``arrays`` (a resize differs by rounding between packages)."""
+            ``arrays`` (a resize differs by rounding between packages).
+            Returns the package's extras with a name in place of the
+            models."""
             self._log(name, (gen, params, [(tuple(i.shape),
                                             _dtype_name(i.dtype))
                                            for i in imgs]), kw)
             arrays.extend(np.asarray(i, np.float64) for i in imgs)
-            return f"{name} {len(arrays)}"
+            extras = japi.DenoiseExtras if xp is np else tapi.DenoiseExtras
+            return extras(controlnet_params=[f"{name} {len(arrays)}"])
 
         def build_controlnet_extras(self, gen, params, imgs, **kw):
             return self._unit_images("build_controlnet_extras", gen, params,
@@ -382,6 +397,19 @@ def _recorder(log, xp, arrays):
         def build_t2i_extras(self, gen, params, imgs, **kw):
             return self._unit_images("build_t2i_extras", gen, params, imgs,
                                      kw)
+
+        def build_ip_extras(self, adapters, embeds, **kw):
+            """Logs the adapters by (variant, tokens) and the embeds, masks
+            and scales; returns the package's extras with the scales and
+            masks and a name in place of each adapter's tokens."""
+            self._log("build_ip_extras", (
+                [(a.variant, a.num_tokens) for a in adapters], embeds), kw)
+            extras = japi.DenoiseExtras if xp is np else tapi.DenoiseExtras
+            masks = kw.get("masks")
+            return extras(
+                ip_tokens=tuple(f"tokens {i}" for i in range(len(adapters))),
+                ip_scales=tuple(kw["scales"]),
+                ip_masks=None if masks is None else tuple(masks))
 
     return Recorder
 
@@ -399,6 +427,14 @@ _CN = {"kind": "ControlNetUnit", "model": "Canny", "image": _UNIT,
        "scale": 0.8, "guidance_end": 0.6}
 _T2I = {"kind": "T2IAdapterUnit", "model": "Sketch", "image": _UNIT,
         "scale": 0.9, "conditioning_factor": 0.5}
+_IP = {"kind": "IPAdapterUnit", "model": "IP-Adapter", "image": _INIT,
+       "scale": 0.7, "mask": _MASK}
+_VCFG = dict(image_size=28, patch_size=14, hidden_size=32,
+             intermediate_size=64, num_layers=2, num_heads=2,
+             projection_dim=16)
+_EMB = np.random.default_rng(3).standard_normal((2, 16)).astype(np.float32)
+_HIDDEN = np.random.default_rng(4).standard_normal((2, 5, 32)).astype(
+    np.float32)
 
 # (id, inference keyword arguments) on top of a tiny 64^2, 4-step request
 REQUESTS = [
@@ -505,16 +541,64 @@ REQUESTS = [
         _CN, {**_CN, "preprocessor": "Canny",
               "preprocessor_options": {"low": 100}}]}),
     ("unit_path", {"t2i_units": [{**_T2I, "model": __file__}]}),
+] + [  # IP-Adapter units: the image tower and the face networks are stubs
+    # (_stub_ip_models), the adapters' weights each package's by name
+    (f"ip {name}", {"ip_adapter_units": [
+        {"kind": "IPAdapterUnit", "model": name, "image": _INIT,
+         "scale": 0.6, "mask": _MASK if i % 2 else None}]})
+    for i, name in enumerate(jregistry.IP_ADAPTER_MODELS)
+] + [
+    ("ip_two_units_map", {"ip_adapter_units": [_IP, {
+        **_IP, "model": "IP-Adapter Plus", "image": _UNIT, "mask": None,
+        "scale": 1.0}], "region_state": _state(64)}),
+    ("ip_image_embeds", {"ip_adapter_units": [
+        {**_IP, "image": None, "image_embeds": _EMB[0]},
+        {**_IP, "model": "IP-Adapter Plus Face", "image": None,
+         "image_embeds": _HIDDEN[0], "uncond_image_embeds": _HIDDEN[1]},
+        {**_IP, "model": "IP-Adapter Face", "image": None,
+         "image_embeds": _EMB[:2], "uncond_image_embeds": _EMB[1]}],
+        "num_images_per_prompt": 2}),
+    ("ip_invert_mask", {"ip_adapter_units": [{**_IP, "invert_mask": True}]}),
+    ("ip_nipp2", {"ip_adapter_units": [_IP, {
+        **_IP, "model": "IP-Adapter FaceID", "mask": None}],
+        "num_images_per_prompt": 2}),
+    ("ip_faceid_detector", {"ip_adapter_units": [{
+        **_IP, "model": "IP-Adapter FaceID", "image": _BIG}], "_faces": True}),
+    ("ip_faceid_unit_embedder", {"ip_adapter_units": [{
+        **_IP, "model": "IP-Adapter FaceID",
+        "face_embedder": "unit"}], "_faces": True}),
+    ("ip_cfg_off", {"ip_adapter_units": [_IP], "cfg_scale": 1.0}),
+    ("ip_hires", {"ip_adapter_units": [_IP], "hires_scale": 2.0,
+                  "region_state": _state(64)}),
+    ("ip_t2i_hires", {"ip_adapter_units": [_IP], "t2i_units": [_T2I],
+                      "hires_scale": 2.0}),
+    ("ip_grid", {"prompt": [PROMPT, "a dog"], "seed": [4, 9],
+                 "ip_adapter_units": [_IP]}),
+    ("ip_img2img", {"ip_adapter_units": [_IP], "init_image": _INIT,
+                    "strength": 0.5}),
+    ("ip_inpaint", {"ip_adapter_units": [_IP], "init_image": _INIT,
+                    "inpaint_mask": _MASK}),
+    ("ip_chunked", {"ip_adapter_units": [_IP], "cancel_check_steps": 2}),
+    ("ip_no_image", {"ip_adapter_units": [{**_IP, "image": None}]}),
 ]
+
+
+def _face_embedder(xp):
+    """A unit's own embedder: the package's stub on a flipped crop."""
+    embed = jface_embed.embed_face if xp == "jax" else tface_embed.embed_face
+    return lambda img: embed(np.asarray(img)[:, ::-1])
 
 
 def _units(api, kwargs):
     """The unit dicts of a request as ``api``'s unit dataclasses."""
     out = dict(kwargs)
-    for key in ("controlnet_units", "t2i_units"):
+    out.pop("_faces", None)
+    for key in ("controlnet_units", "t2i_units", "ip_adapter_units"):
         if key in out:
             out[key] = [getattr(api, u["kind"])(**{
-                k: v for k, v in u.items() if k != "kind"}) for u in out[key]]
+                k: (_face_embedder("jax" if api is japi else "torch")
+                    if k == "face_embedder" else v)
+                for k, v in u.items() if k != "kind"}) for u in out[key]]
     return out
 
 
@@ -540,6 +624,72 @@ def _stub_unit_models(m, log, real):
     stub("get_preprocessor", "preprocessor")
 
 
+_UNETS = {}
+
+
+def _tiny_unet(package):
+    """The tiny UNet tree in ``package``'s layout: the IP-Adapter branch
+    installs its weights into a copy of it."""
+    if package not in _UNETS:
+        tree = tfactory.init_pipeline_params(0, tcfg.tiny_config(),
+                                             torch.float32, "cpu")["unet"]
+        from tests.test_torch_controlnet import to_jax
+
+        _UNETS["torch"], _UNETS["jax"] = tree, to_jax(tree)
+    return _UNETS[package]
+
+
+def _stub_ip_models(m, log, package, monkeypatch, faces):
+    """The image tower as a stub in both packages (a tiny config; embeds
+    of ones from an image, of zeros from zero pixels, so that the
+    Resampler's uncond shows), the manager's calls recorded. With
+    ``faces``, a registered detector and embedder: the port builds its
+    tiny networks, then both packages get the same numpy stand-ins (a
+    crop of the photo, the stub embedder)."""
+    mod = jclip_vision if package == "jax" else tclip_vision
+    cfg = mod.CLIPVisionConfig(**_VCFG)
+    m.get_image_encoder = lambda: log.append(("get_image_encoder",)) or (
+        cfg, "encoder")
+
+    def tower(params, c, pixels, output_hidden_state=False):
+        # the pixels by shape and dtype: their values differ by rounding
+        # (tests/test_torch_clip_vision.py holds them to 1e-5)
+        log.append(("clip_vision_apply", tuple(pixels.shape),
+                    _dtype_name(pixels.dtype), output_hidden_state))
+        b = pixels.shape[0]
+        shape = ((b, c.num_patches + 1, c.hidden_size)
+                 if output_hidden_state else (b, c.projection_dim))
+        if package == "jax":
+            return jnp.ones(shape) * float(jnp.abs(pixels).sum() > 0)
+        return torch.ones(shape) * float(pixels.abs().sum() > 0)
+
+    monkeypatch.setattr(mod, "clip_vision_apply", tower)
+    own_aligner, own_embedder = m.get_face_aligner, m.get_face_embedder
+    embed = (jface_embed if package == "jax" else tface_embed).embed_face
+    if faces and package == "torch":
+        m.register_face_detector(cfg=tface_detect.FACEDETECT_TINY,
+                                 top1_fallback=True)
+        m.register_face_embedder(cfg=dataclasses.replace(
+            tarcface.ARCFACE_TINY, embed_dim=512))
+
+    def aligner():
+        log.append(("get_face_aligner",))
+        if not faces:
+            return own_aligner()
+        if package == "torch":
+            crop = own_aligner()(_BIG)
+            assert crop.shape == (112, 112, 3)
+        return lambda img: np.asarray(img, np.float32)[8:72, 4:68]
+
+    def embedder():
+        log.append(("get_face_embedder",))
+        if faces and package == "torch":
+            assert own_embedder()(_BIG).shape == (512,)
+        return embed
+
+    m.get_face_aligner, m.get_face_embedder = aligner, embedder
+
+
 def _run(package, monkeypatch, kwargs, arrays=None):
     """(calls, outcome) of one inference() in ``package``; the unit images
     the pipeline's extras builders get are appended to ``arrays``."""
@@ -554,9 +704,11 @@ def _run(package, monkeypatch, kwargs, arrays=None):
         monkeypatch.setattr(api, "StableDiffusionTorch",
                             _recorder(log, torch, arrays))
     m._dirs["tiny"] = ("", _CFG)
-    m._cache["tiny"] = {}
+    m._cache["tiny"] = ({"unet": _tiny_unet(package)}
+                        if "ip_adapter_units" in kwargs else {})
     m._tokenizers["tiny"] = None
     _stub_unit_models(m, log, real=package == "torch")
+    _stub_ip_models(m, log, package, monkeypatch, kwargs.get("_faces"))
     ticks = []
     kw = {"prompt": PROMPT, "model": "tiny", "steps": 4, "width": 64,
           "height": 64, "progress_cb": lambda d, t: ticks.append((d, t)),
@@ -753,9 +905,11 @@ def test_watchdog_and_progress_cb_stop_a_run(manager):
 
 
 def test_unported_paths_raise_naming_their_item(manager, tmp_path):
-    """What is not ported raises naming its ROADMAP item: unit weights from
-    a path (17) and a unit's preprocessor (20) among them; a unit model by
-    name runs (tests/test_torch_units.py has the units' parity)."""
+    """What is not ported raises naming its ROADMAP item: unit, image-encoder
+    and face-network weights from a path (17) and a unit's preprocessor
+    (20) among them; a unit model by name runs, and so do the IP-Adapter
+    getters (tests/test_torch_units.py and tests/test_torch_ip_adapter.py
+    have the units' parity)."""
     base = dict(prompt=PROMPT, model="tiny", steps=2, width=64, height=64,
                 dtype=torch.float32)
     img = np.zeros((64, 64, 3), np.float32)
@@ -763,8 +917,8 @@ def test_unported_paths_raise_naming_their_item(manager, tmp_path):
             ({"controlnet_units": [tapi.ControlNetUnit(
                 "Canny", img, preprocessor="Canny")]}, 20),
             ({"t2i_units": [tapi.T2IAdapterUnit(str(tmp_path), img)]}, 17),
-            ({"ip_adapter_units": [tapi.IPAdapterUnit("IP-Adapter", img)]},
-             16),
+            ({"ip_adapter_units": [tapi.IPAdapterUnit(__file__, img)]},
+             17),
             ({"loras": ["style.safetensors"]}, 17),
             ({"ti_embeddings": ["emb.pt"]}, 17),
             ({"tgate_gate_frac": 0.5}, 18)):
@@ -777,13 +931,14 @@ def test_unported_paths_raise_naming_their_item(manager, tmp_path):
     for call, item in ((lambda: manager.get_controlnet(str(tmp_path), unet),
                         17),
                        (lambda: manager.get_t2i_adapter(str(tmp_path)), 17),
-                       (lambda: manager.get_ip_adapter_state("x", None), 16),
-                       (manager.get_image_encoder, 16),
-                       (manager.register_image_encoder, 16),
-                       (manager.get_face_embedder, 16),
-                       (manager.register_face_embedder, 16),
-                       (manager.get_face_aligner, 16),
-                       (manager.register_face_detector, 16),
+                       (lambda: manager.get_ip_adapter_state(__file__, unet),
+                        17),
+                       (lambda: manager.register_image_encoder(
+                           str(tmp_path)), 17),
+                       (lambda: manager.register_face_embedder(
+                           "backbone.pth"), 17),
+                       (lambda: manager.register_face_detector(
+                           "scrfd.pth"), 17),
                        (lambda: manager.get_preprocessor("Canny"), 20),
                        (lambda: manager.register_preprocessor("Depth"), 20)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
@@ -797,6 +952,35 @@ def test_unported_paths_raise_naming_their_item(manager, tmp_path):
     ad = manager.get_t2i_adapter("Sketch", unet)
     assert ad["blocks"][3]["in_conv"] is None  # 128 -> 128
     assert manager.get_t2i_adapter("Sketch") is ad  # cached by name
+    # the IP-Adapter getters: random weights by name, the stub embedder and
+    # no detector until registered, networks once registered (cached)
+    ipm = tapi.ModelManager(dtype=torch.float32, device="cpu")
+    vcfg = tclip_vision.CLIPVisionConfig(**_VCFG)
+    ipm.register_image_encoder(cfg=vcfg)
+    enc_cfg, enc = ipm.get_image_encoder()
+    assert enc_cfg is vcfg and ipm.get_image_encoder()[1] is enc
+    assert enc["layers"][0]["fc1"]["kernel"].shape == (64, 32)
+    for name, variant in tapi.ModelManager._IP_VARIANTS.items():
+        st = ipm.get_ip_adapter_state(name, unet)
+        assert ipm.get_ip_adapter_state(name, unet) is st
+        # the same weights as the JAX package's by name (its routing rows
+        # above hold each name's variant to the JAX package's)
+        ref = jipa.random_state_dict(
+            _CFG.unet, variant, seed=0,
+            embed_dim=32 if variant == "resampler" else 16)
+        for group in ref:
+            assert all(np.array_equal(st[group][k], ref[group][k])
+                       for k in ref[group])
+    assert ipm.get_face_embedder() is tface_embed.embed_face
+    assert ipm.get_face_aligner() is None
+    ipm.register_face_embedder(cfg=tarcface.ARCFACE_TINY)
+    embed = ipm.get_face_embedder()
+    assert ipm.get_face_embedder() is embed
+    assert embed(np.zeros((40, 40, 3), np.uint8)).shape == (32,)
+    ipm.register_face_detector(cfg=tface_detect.FACEDETECT_TINY,
+                               top1_fallback=True)
+    align = ipm.get_face_aligner()
+    assert align(_INIT).shape == (112, 112, 3)
     fresh = tapi.ModelManager(dtype=torch.float32, device="cpu")
     assert fresh.get_t2i_adapter("x")["blocks"][0]["in_conv"]["kernel"] \
         .shape[0] == 320  # the SD1.5 adapter without a config
@@ -816,6 +1000,43 @@ def test_zero_head_controlnet_unit_changes_nothing(manager):
         tapi.T2IAdapterUnit("Sketch", img)], **kw)["images"]
     assert np.array_equal(cn, plain)
     assert not np.array_equal(t2i, plain)
+
+
+def test_ip_unit_leaves_the_manager_tree_as_it_was(manager):
+    """An IP-Adapter request installs its weights into a copy of the UNet
+    tree's containers: the manager's tree gains no ``"ip"`` lists and a
+    plain request after it gives the earlier plain image bit for bit. At
+    scale 0 the unit gives the plain image (``out + 0 * ip_out``); a
+    FaceID unit with the registered tiny detector and a 512-wide ArcFace
+    moves it."""
+    kw = dict(prompt=PROMPT, model="tiny", steps=2, width=64, height=64,
+              seed=3, encoding_mode="short", dtype=torch.float32,
+              region_state=_state(64))
+    manager.register_image_encoder(cfg=tclip_vision.CLIPVisionConfig(
+        **_VCFG))
+    plain = tapi.inference(manager, **kw)["images"]
+    unit = tapi.IPAdapterUnit("IP-Adapter Plus", _INIT, mask=_MASK)
+    with_ip = tapi.inference(manager, ip_adapter_units=[unit], **kw)
+    assert not np.array_equal(with_ip["images"], plain)
+    attn2 = manager.get("tiny")[1]["unet"]["mid_block"]["attention"][
+        "blocks"][0]["attn2"]
+    assert "ip" not in attn2
+    assert np.array_equal(tapi.inference(manager, **kw)["images"], plain)
+    zero = dataclasses.replace(unit, scale=0.0)
+    assert np.array_equal(tapi.inference(
+        manager, ip_adapter_units=[zero], **kw)["images"], plain)
+    manager.register_face_detector(cfg=tface_detect.FACEDETECT_TINY,
+                                   top1_fallback=True)
+    manager.register_face_embedder(cfg=dataclasses.replace(
+        tarcface.ARCFACE_TINY, embed_dim=512))
+    try:
+        face = tapi.inference(manager, ip_adapter_units=[
+            tapi.IPAdapterUnit("IP-Adapter FaceID", _INIT)], **kw)
+        assert not np.array_equal(face["images"], plain)
+    finally:
+        manager._detector_spec = manager._face_cfg = None
+        manager._adapters.pop("face_aligner", None)
+        manager._adapters.pop("face_embedder", None)
 
 
 def test_manager_registers_the_zoo_and_needs_a_card_by_default(tmp_path):

@@ -5,8 +5,9 @@ The server runs ``serve(manager, port=0, block=False)`` with the tiny model
 on the CPU: identical POSTs return identical PNGs, equal to the native
 codec's encoding of a direct ``inference()`` call; the job queue reports
 progress, runs to done and cancels a queued job; ``/warmup`` returns one
-record per config; ControlNet and T2I-Adapter units run; errors answer 400
-(a caller's mistake), 404 or 501 (not ported yet), never 200. ``_inference_kwargs`` of both packages turn the
+record per config; ControlNet, T2I-Adapter and IP-Adapter units run;
+errors answer 400 (a caller's mistake), 404 or 501 (not ported yet), never
+200. ``_inference_kwargs`` of both packages turn the
 same JSON payloads into equal keyword arguments (no JAX program runs).
 """
 
@@ -14,6 +15,7 @@ import base64
 import dataclasses
 import io
 import json
+import os
 import urllib.error
 import urllib.request
 
@@ -159,8 +161,8 @@ def test_warmup_returns_one_record_per_config(server):
         {"model": "Canny", "image": np.zeros((8, 8, 3)).tolist(),
          "preprocessor": "Canny"}]}, 501, "item 20"),
     ("ip-adapter unit", {**BASE, "ip_adapter_units": [
-        {"model": "IP-Adapter", "image_embeds": [0.0] * 8}]}, 501,
-     "item 16"),
+        {"model": os.path.abspath(__file__), "image_embeds": [0.0] * 8}]},
+     501, "item 17"),
     ("speed mode", {**BASE, "deepcache_interval": 3}, 501, "item 18"),
 ], ids=lambda c: c[0])
 def test_generate_errors(server, case):
@@ -190,6 +192,38 @@ def test_generate_with_units_equals_inference(server):
             native.encode_png(direct["images"][0])
     assert _call(srv, "/generate", cn)[1]["images"] == plain
     assert _call(srv, "/generate", both)[1]["images"] != plain
+
+
+def test_generate_with_ip_unit_equals_inference(server):
+    """An IP-Adapter unit over HTTP (the reference image and the mask as
+    nested lists) gives the PNG of a direct ``inference()`` call; at scale
+    0 it gives the PNG of the request without it (``out + 0 * ip_out`` is
+    exact)."""
+    from diffusionspatialcontrol_tpu_torch.models.clip_vision import (
+        CLIPVisionConfig,
+    )
+
+    srv, m = server
+    m.register_image_encoder(cfg=CLIPVisionConfig(
+        image_size=28, patch_size=14, hidden_size=32, intermediate_size=64,
+        num_layers=2, num_heads=2, projection_dim=16))
+    img = (np.arange(40 * 40 * 3).reshape(40, 40, 3) % 253).astype(np.uint8)
+    mask = np.zeros((64, 64), int)
+    mask[:, 32:] = 1
+    unit = {"model": "IP-Adapter Plus", "image": img.tolist(),
+            "mask": mask.tolist(), "scale": 0.8}
+    payload = {**BASE, "region_state": _state_json(),
+               "ip_adapter_units": [unit]}
+    status, out = _call(srv, "/generate", payload)
+    assert status == 200, out
+    direct = tapi.inference(m, **tserver._inference_kwargs(payload))
+    assert base64.b64decode(out["images"][0]) == \
+        native.encode_png(direct["images"][0])
+    plain = _call(srv, "/generate", {**BASE, "region_state":
+                                     _state_json()})[1]["images"]
+    assert out["images"] != plain
+    zero = {**payload, "ip_adapter_units": [{**unit, "scale": 0.0}]}
+    assert _call(srv, "/generate", zero)[1]["images"] == plain
 
 
 def test_other_endpoints(server):
@@ -330,8 +364,8 @@ def test_cli_builds_a_cpu_manager_and_refuses_unported_flags():
                         (["--model", "nodir"], 17),
                         (["--zoo", "/models"], 17),
                         (["--preprocessor", "Depth=dpt.safetensors"], 20),
-                        (["--image-encoder", "clip.safetensors"], 16),
-                        (["--face-embedder", "arcface.pth"], 16)):
+                        (["--image-encoder", "clip.safetensors"], 17),
+                        (["--face-embedder", "arcface.pth"], 17)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             tserver.build_manager_from_args(tserver.parse_args(
                 ["--random-model", "t:tiny", "--device", "cpu", *flags]))

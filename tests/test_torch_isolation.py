@@ -38,6 +38,11 @@ APP_LAYER = tuple(f"diffusionspatialcontrol_tpu_torch.{m}" for m in (
 # the ControlNet and T2I-Adapter models
 UNITS = tuple(f"diffusionspatialcontrol_tpu_torch.models.{m}"
               for m in ("controlnet", "t2i_adapter"))
+# IP-Adapter, its image tower and the FaceID face models, each with its own
+# copy of what it needs from the JAX package's numpy-only modules
+IP_ADAPTER = tuple(f"diffusionspatialcontrol_tpu_torch.{m}" for m in (
+    "models.ip_adapter", "models.clip_vision", "models.arcface",
+    "models.face_detect", "ops.face_embed"))
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -59,7 +64,7 @@ def test_importing_every_port_module_loads_no_jax():
                          check=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(result["modules"]) >= 20
-    assert set(APP_LAYER + UNITS) <= set(result["modules"])
+    assert set(APP_LAYER + UNITS + IP_ADAPTER) <= set(result["modules"])
     assert result["loaded"] == []
 
 
@@ -118,3 +123,18 @@ def test_app_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         server.build_manager_from_args(args)
     assert api.ModelManager(device="cpu").device == torch.device("cpu")
+
+
+def test_ip_adapter_entry_points_default_to_cuda_and_raise_without_it():
+    from diffusionspatialcontrol_tpu_torch.models import ip_adapter
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = tiny_config().unet
+    sd = ip_adapter.random_state_dict(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ip_adapter.load_ip_adapter({}, cfg, [sd])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ip_adapter.convert_image_proj(sd["image_proj"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ip_adapter.install_ip_adapter_weights({}, cfg, [sd["ip_adapter"]])
