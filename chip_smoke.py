@@ -84,7 +84,22 @@ result line:
    kernels (the spatial request also with the host's ops) at the end of
    the run, after every phase's timed requests: a profile leaves the host
    slower at launching for the rest of the process;
-5. app: the app layer on SD1.5 at full width: ``ModelManager()`` behind the
+5. weights: SD1.5 at full width from disk: random weights drawn in fp32,
+   written as a diffusers checkpoint in fp16 by the port's own safetensors
+   writer and loaded in bf16 by ``ModelManager.get``, by ``cached_convert``
+   (convert and snapshot, then restore) and by a server started with
+   ``--model``; every loaded leaf equal to the drawn tree after fp32 ->
+   fp16 -> bf16 bit for bit, the spatial request's PNG from the checkpoint
+   equal to the drawn tree's (``inference()`` and the POST), the spatial
+   request and a ``"pallas2"`` one timed on the loaded tree, a full-width
+   rank-8 LoRA and a textual-inversion file merged by ``get_variant``
+   (each merged leaf equal to the host numpy merge; the base tree
+   unchanged) serving a request with the trigger word, an IP-Adapter Plus
+   file with the published depth-4 Resampler (masked, through the
+   manager's ViT-H/14 tower) and a ControlNet file, each with its exact
+   launches; the seconds to write, read, convert and restore, the host's
+   peak RSS and the card's peak allocation;
+6. app: the app layer on SD1.5 at full width: ``ModelManager()`` behind the
    JSON HTTP server, in this process. The spatial request over HTTP (the
    PNGs decoded here and held bit for bit to a direct ``inference()`` call
    and to the pipeline; repeated POSTs byte-identical), a job polled to
@@ -121,7 +136,7 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("build", "kernels", "tiny", "main", "app")
+PHASES = ("build", "kernels", "tiny", "main", "weights", "app")
 
 PROMPT = "a red cat sitting on a wooden bench, a blue bird flying"
 NEG = "bad quality, low quality, jpeg artifact, cropped"
@@ -2155,6 +2170,102 @@ def main_other_models(ctx, gen, state, init, mask):
         c, gen, seed=99, region_biases=rb), "sd21_spatial")
 
 
+# diffusers names of the port's trees (the JAX package has no exporter, so
+# the inverse of convert/hf.py's naming lives here, for phase weights and
+# the CPU tests that write checkpoints)
+_DIFFUSERS_RENAMES = {
+    "blocks": "transformer_blocks", "to_out": "to_out.0",
+    "downsample": "downsamplers.0.conv", "upsample": "upsamplers.0.conv",
+    "resnet1": "resnets.0", "resnet2": "resnets.1",
+    "attention": "attentions.0", "mid": "mid_block",
+    "cond_embedding": "controlnet_cond_embedding",
+    "zero_convs": "controlnet_down_blocks",
+    "mid_zero_conv": "controlnet_mid_block",
+}
+_DIFFUSERS_FF = {"proj_in": "net.0.proj", "proj_out": "net.2"}
+_CLIP_NAMES = {"q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj",
+               "v_proj": "self_attn.v_proj", "out_proj": "self_attn.out_proj",
+               "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+
+
+def diffusers_state_dict(tree, prefix: str = "") -> dict:
+    """name -> tensor of a UNet, VAE or ControlNet tree under the diffusers
+    names: a conv's or linear's kernel (OIHW, (out, in): torch's own
+    layouts) and a norm's scale are ``.weight``, biases ``.bias``; the VAE's
+    quant convs sit outside its encoder and decoder."""
+    out = {}
+
+    def walk(node, name):
+        if node is None:
+            return
+        if isinstance(node, torch.Tensor):
+            out[name] = node
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{name}.{i}")
+        elif "kernel" in node or "scale" in node:
+            out[f"{name}.weight"] = node.get("kernel", node.get("scale"))
+            if "bias" in node:
+                out[f"{name}.bias"] = node["bias"]
+        else:
+            for k, v in node.items():
+                if name.endswith(".ff") and k in _DIFFUSERS_FF:
+                    seg = _DIFFUSERS_FF[k]
+                elif k == "blocks" and name.endswith("cond_embedding"):
+                    seg = k
+                else:
+                    seg = _DIFFUSERS_RENAMES.get(k, k)
+                walk(v, f"{name}.{seg}" if name else seg)
+
+    walk(tree, prefix)
+    return {k.replace("encoder.quant_conv.", "quant_conv.").replace(
+        "decoder.post_quant_conv.", "post_quant_conv."): v
+        for k, v in out.items()}
+
+
+def clip_state_dict(tree) -> dict:
+    """name -> tensor of a CLIP text tree under the transformers names."""
+    out = {"text_model.embeddings.token_embedding.weight":
+           tree["token_embedding"],
+           "text_model.embeddings.position_embedding.weight":
+           tree["position_embedding"]}
+    for i, layer in enumerate(tree["layers"]):
+        for k, v in layer.items():
+            name = f"text_model.encoder.layers.{i}.{_CLIP_NAMES.get(k, k)}"
+            out[f"{name}.weight"] = v.get("kernel", v.get("scale"))
+            out[f"{name}.bias"] = v["bias"]
+    norm = tree["final_layer_norm"]
+    out["text_model.final_layer_norm.weight"] = norm["scale"]
+    out["text_model.final_layer_norm.bias"] = norm["bias"]
+    return out
+
+
+def write_diffusers_checkpoint(params, root: str, dtype=torch.float16
+                               ) -> dict:
+    """A diffusers-layout checkpoint directory of ``params`` at ``root``:
+    unet/, vae/ and text_encoder/ safetensors files of ``dtype`` tensors,
+    written by the port's own writer; no tokenizer/. Returns the seconds
+    each file took to write."""
+    from diffusionspatialcontrol_tpu_torch.convert.safetensors import (
+        save_file,
+    )
+
+    seconds = {}
+    for sub, fname, sd in (
+            ("unet", "diffusion_pytorch_model.safetensors",
+             diffusers_state_dict(params["unet"])),
+            ("vae", "diffusion_pytorch_model.safetensors",
+             diffusers_state_dict(params["vae"])),
+            ("text_encoder", "model.safetensors",
+             clip_state_dict(params["clip"]))):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        t0 = time.perf_counter()
+        save_file({k: v.to(dtype) for k, v in sd.items()},
+                  os.path.join(root, sub, fname))
+        seconds[sub] = time.perf_counter() - t0
+    return seconds
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """A short PNG decoder on Python's zlib for what the codec writes: 8-bit
     RGB, not interlaced, every scanline unfiltered (filter type 0). Checks
@@ -2529,6 +2640,494 @@ def phase_app(ctx):
     torch.cuda.empty_cache()
 
 
+LORA_RANK = 8
+TI_WORD = "sksstyle"  # the textual-inversion file's trigger word
+PLUS_DEPTH = 4  # the published ip-adapter-plus_sd15's Resampler layers
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return None if tree is None else fn(tree)
+
+
+def _leaves(tree, path=""):
+    """(path, tensor) of every tensor of ``tree``, dict keys sorted."""
+    if isinstance(tree, dict):
+        return [x for k, v in sorted(tree.items())
+                for x in _leaves(v, f"{path}/{k}")]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree)
+                for x in _leaves(v, f"{path}/{i}")]
+    return [] if tree is None else [(path, tree)]
+
+
+def _as_stored(t: torch.Tensor) -> torch.Tensor:
+    """What a tensor becomes when written in fp16 and loaded in bf16: fp32
+    -> fp16 -> fp32 -> bf16, each rounding to nearest even; a 4-d one with
+    the strides the converter gives it (channels_last, 1x1 kernels too)."""
+    out = torch.empty(t.shape, dtype=torch.bfloat16, device=t.device,
+                      memory_format=torch.channels_last if t.dim() == 4
+                      else torch.contiguous_format)
+    return out.copy_(t.to(torch.float16).float())
+
+
+def _check_tree(what, got, want, extra_rows=0):
+    """``got`` equals ``want`` leaf for leaf, bit for bit (the token table
+    may carry ``extra_rows`` zero rows); returns the number of leaves."""
+    gl, wl = _leaves(got), _leaves(want)
+    if [p for p, _ in gl] != [p for p, _ in wl]:
+        raise AssertionError(f"weights: {what}: the trees differ in shape")
+    for (p, a), (_, b) in zip(gl, wl):
+        if p.endswith("token_embedding") and extra_rows:
+            if a.shape[0] != b.shape[0] + extra_rows or \
+                    bool(a[b.shape[0]:].any()):
+                raise AssertionError(f"weights: {what}: {p} has no "
+                                     f"{extra_rows} zero rows")
+            a = a[:b.shape[0]]
+        if a.dtype != b.dtype or a.shape != b.shape or \
+                not torch.equal(a, b):
+            raise AssertionError(f"weights: {what}: {p} differs")
+        if a.dim() == 4 and not a.is_contiguous(
+                memory_format=torch.channels_last):
+            raise AssertionError(f"weights: {what}: {p} is not "
+                                 f"channels_last")
+    return len(gl)
+
+
+def lora_for(params, rank: int, seed: int) -> dict:
+    """A kohya LoRA (name -> fp16 numpy) of rank ``rank`` on every
+    attention linear, ``ff``, ``proj_in``/``proj_out`` (1x1 convs on SD1.5)
+    and the resnets' 3x3 convs of the UNet, and every linear of the text
+    encoder; down ~ N(0, 1/fan_in), up ~ N(0, 0.02^2)."""
+    from diffusionspatialcontrol_tpu_torch.convert import lora
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for prefix, index, tree in (
+            ("lora_unet", lora._module_index(params["unet"]), params["unet"]),
+            ("lora_te", lora._clip_module_index(params["clip"]),
+             params["clip"])):
+        for name, path in sorted(index.items()):
+            last = name.rsplit(".", 1)[-1]
+            if prefix == "lora_unet" and not (
+                    ".attn" in name or ".ff." in name
+                    or last in ("proj_in", "proj_out")
+                    or (".resnets." in name and last in ("conv1", "conv2"))):
+                continue
+            k = lora._get(tree, path)["kernel"]
+            o, i = k.shape[:2]
+            tail = tuple(k.shape[2:])
+            fan_in = i * int(np.prod(tail, dtype=np.int64))
+            mod = f"{prefix}_{lora._normalize(name)}"
+            out[f"{mod}.lora_down.weight"] = (rng.standard_normal(
+                (rank, i) + tail) / np.sqrt(fan_in)).astype(np.float16)
+            out[f"{mod}.lora_up.weight"] = (0.02 * rng.standard_normal(
+                (o, rank) + ((1, 1) if tail else ()))).astype(np.float16)
+            out[f"{mod}.alpha"] = np.array(rank, np.float16)
+    return out
+
+
+def host_lora_merge(kernel, up, down, scale):
+    """The JAX package's merge arithmetic (``convert/lora.py``: numpy fp32
+    in its HWIO / (in, out) layouts, one cast to the leaf's dtype), back in
+    the port's layouts: the reference a merged leaf is held to."""
+    w = kernel.float().cpu().numpy()
+    w = w.transpose(2, 3, 1, 0) if w.ndim == 4 else w.T
+    if up.ndim == 4:
+        up2 = up.reshape(up.shape[0], up.shape[1])
+        if down.shape[2:] == (1, 1):
+            delta = (up2 @ down.reshape(down.shape[0], down.shape[1])
+                     ).T[None, None]
+        else:
+            delta = np.einsum("or,rihw->oihw", up2, down).transpose(
+                2, 3, 1, 0)
+    else:
+        delta = (up @ down).T
+    new = w + scale * delta
+    new = new.transpose(3, 2, 0, 1) if new.ndim == 4 else new.T
+    return torch.from_numpy(np.ascontiguousarray(new)).to(kernel.dtype)
+
+
+def plus_state_dict(unet_cfg, embed_dim: int, depth: int, seed: int):
+    """An "IP-Adapter Plus" file's groups: ``random_state_dict``'s layout
+    (the JAX package's numpy draws) with the Resampler grown to ``depth``
+    layers, the added layers drawn like its first."""
+    from diffusionspatialcontrol_tpu_torch.models import ip_adapter as ipa
+
+    sd = ipa.random_state_dict(unet_cfg, "resampler", seed=seed,
+                               embed_dim=embed_dim)
+    proj, rng = sd["image_proj"], np.random.default_rng(seed + 1)
+    for i in range(2, depth):
+        for k in [k for k in proj if k.startswith("layers.0.")]:
+            v = proj[k]
+            proj[f"layers.{i}." + k[len("layers.0."):]] = (
+                v if v.std() == 0 else 0.02 * rng.standard_normal(v.shape)
+            ).astype(np.float32)
+    return sd
+
+
+def _maxrss_gb() -> float:
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def phase_weights(ctx):
+    """Weights from disk at full width: a diffusers checkpoint of SD1.5
+    (random weights drawn in fp32 from seed 0, written in fp16, the
+    published dtype, by the port's own safetensors writer; no tokenizer/,
+    so the hash tokenizer reads the prompts as everywhere here) loaded by
+    ``ModelManager.register`` + ``get`` in bf16, by ``cached_convert``
+    (convert and snapshot, then restore) and by a server started with
+    ``--model``. Every loaded leaf must equal the drawn tree after fp32 ->
+    fp16 -> bf16 bit for bit; the spatial request (512^2, 25 DPM++ 2M
+    Karras steps, CFG 7.5, the two-phrase map) through ``inference()`` must
+    give the PNG of the same request on that tree given to the manager
+    directly, bit for bit, and so must the POST. Then, on the loaded tree:
+    the spatial request timed, a ``"pallas2"`` request (K5 on the converted
+    kernels); a kohya LoRA of rank 8 (every attention linear, ff,
+    proj_in/proj_out, the resnets' 3x3 convs and the text encoder's
+    linears) and a 2-vector textual-inversion file merged by
+    ``get_variant`` (every merged leaf equal to the host numpy merge at the
+    leaf's dtype, the base tree unchanged) serving the spatial request with
+    the trigger word; an "IP-Adapter Plus" file with the published depth-4
+    Resampler (``spatial_ip_plus_masked`` from the file, through the
+    manager's ViT-H/14 tower) and a ControlNet file (its leaves checked,
+    its image equal to the drawn ControlNet's); and the spatial request on
+    the loaded values with the random init's strides for the 1x1 kernels,
+    profiled beside the loaded tree's at the end. Prints the seconds to write
+    and read each file, to convert and restore, the host's peak RSS and the
+    card's peak allocation, and the requests' p50s; the files go into a
+    temporary directory that is removed at the end."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_weights_")
+    try:
+        _weights(ctx, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _weights(ctx, root):
+    import base64
+
+    from diffusionspatialcontrol_tpu_torch import GenerationConfig, sd15_config
+    from diffusionspatialcontrol_tpu_torch.app import api
+    from diffusionspatialcontrol_tpu_torch.app import server as srv_mod
+    from diffusionspatialcontrol_tpu_torch.convert import cache, lora
+    from diffusionspatialcontrol_tpu_torch.convert.safetensors import (
+        load_file,
+        save_file,
+    )
+    from diffusionspatialcontrol_tpu_torch.models.factory import (
+        init_pipeline_params,
+        param_count,
+    )
+    from diffusionspatialcontrol_tpu_torch.pipeline.pipeline import (
+        StableDiffusionTorch,
+        to_uint8,
+    )
+    from diffusionspatialcontrol_tpu_torch.runtime import native
+    from diffusionspatialcontrol_tpu_torch.text.tokenizer import load_tokenizer
+
+    cfg, dev = sd15_config(), ctx["device"]
+    for key in ("launches", "p50", "seconds"):
+        ctx.setdefault(key, {})
+    t_phase = time.perf_counter()
+    # 1. the drawn tree, written as a diffusers directory in fp16
+    t0 = time.perf_counter()
+    drawn = _with_text_bias(init_pipeline_params(0, cfg, torch.float32), 0)
+    torch.cuda.synchronize()
+    n_params = param_count(drawn)
+    log(f"weights: SD1.5 {n_params / 1e6:.1f} M parameters drawn in fp32 "
+        f"(seed 0) in {time.perf_counter() - t0:.1f} s")
+    ckpt = os.path.join(root, "sd15")
+    write_s = write_diffusers_checkpoint(drawn, ckpt)
+    files = {sub: os.path.join(ckpt, sub, name) for sub, name in (
+        ("unet", "diffusion_pytorch_model.safetensors"),
+        ("vae", "diffusion_pytorch_model.safetensors"),
+        ("text_encoder", "model.safetensors"))}
+    expected = _tree_map(_as_stored, drawn)
+    del drawn
+    torch.cuda.empty_cache()
+    for sub, path in files.items():
+        size = os.path.getsize(path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tensors = load_file(path)
+        mapped = time.perf_counter() - t0
+        on_card = [t.to(dev) for t in tensors.values()]
+        torch.cuda.synchronize()
+        read = time.perf_counter() - t0
+        del tensors, on_card
+        log(f"weights: {sub}: {size / 1e9:.3f} GB written in "
+            f"{write_s[sub]:.2f} s ({size / 1e9 / write_s[sub]:.2f} GB/s), "
+            f"read to the card in {read:.2f} s ({size / 1e9 / read:.2f} "
+            f"GB/s; the header and map {1e3 * mapped:.1f} ms)")
+    # 2. loaded by the manager, by cached_convert and by the server
+    torch.cuda.reset_peak_memory_stats()
+    alloc0 = torch.cuda.memory_allocated()
+    manager = api.ModelManager()
+    manager.register("sd15-disk", ckpt, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, loaded, tok = manager.get("sd15-disk")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n_leaves = _check_tree("ModelManager.get", loaded, expected,
+                           extra_rows=64)
+    log(f"weights: ModelManager.get (load_pipeline_params, bf16, 64 spare "
+        f"embedding rows): {load_s:.2f} s, {n_leaves} leaves equal to the "
+        f"drawn tree after fp32 -> fp16 -> bf16, bit for bit; the card's "
+        f"peak allocation over it "
+        f"{(torch.cuda.max_memory_allocated() - alloc0) / 1e9:.2f} GB above "
+        f"the {alloc0 / 1e9:.2f} GB before; host peak RSS "
+        f"{_maxrss_gb():.2f} GB; tokenizer {type(tok).__name__}")
+    snap_dir = os.path.join(root, "cache")
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = cache.cached_convert(ckpt, snap_dir, cfg, torch.bfloat16)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        _check_tree("cached_convert", tree, expected, extra_rows=64)
+        del tree
+    snap = os.path.join(snap_dir, f"sd15-{cfg.name}")
+    log(f"weights: cached_convert: convert and snapshot "
+        f"({os.path.getsize(snap) / 1e9:.3f} GB) {times[0]:.2f} s, restore "
+        f"{times[1]:.2f} s; both trees equal the drawn one")
+    os.remove(snap)
+    torch.cuda.empty_cache()
+    # 3. the spatial request: inference() on the loaded and on the drawn
+    # tree, the POST, then the pipeline on the loaded tree, timed
+    manager._dirs["sd15-drawn"] = ("", cfg)
+    manager._cache["sd15-drawn"] = expected
+    manager._tokenizers["sd15-drawn"] = load_tokenizer()
+    state = _masks(512, 512)
+    req = dict(prompt=PROMPT, neg_prompt=NEG, sampler="DPM++ 2M Karras",
+               steps=STEPS, cfg_scale=7.5, width=512, height=512, seed=0,
+               encoding_mode="short")
+    pngs = {m: native.encode_png(api.inference(
+        manager, model=m, region_state=state, **req)["images"][0])
+        for m in ("sd15-disk", "sd15-drawn")}
+    if pngs["sd15-disk"] != pngs["sd15-drawn"]:
+        raise AssertionError("weights: the loaded checkpoint's PNG differs "
+                             "from the drawn tree's")
+    srv_manager = srv_mod.build_manager_from_args(srv_mod.parse_args(
+        ["--model", f"sd15-http={ckpt}"]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv_manager.get("sd15-http")
+    torch.cuda.synchronize()
+    srv_load = time.perf_counter() - t0
+    server = srv_mod.serve(srv_manager, port=0, block=False)
+    try:
+        status, out, dt = _http(server.server_address[1], "/generate", {
+            **req, "model": "sd15-http", "region_state": _json_state(state)})
+    finally:
+        server.shutdown()
+        server.server_close()
+    if status != 200 or base64.b64decode(out["images"][0]) != \
+            pngs["sd15-disk"]:
+        raise AssertionError(f"weights: the POST on a server started with "
+                             f"--model gave HTTP {status} and another PNG")
+    del srv_manager, server
+    torch.cuda.empty_cache()
+    log(f"weights: the spatial PNG ({len(pngs['sd15-disk'])} bytes) equal "
+        f"bit for bit from the loaded checkpoint and the drawn tree by "
+        f"inference(), and over HTTP from a server started with --model "
+        f"(its load {srv_load:.2f} s, the POST {dt:.2f} s)")
+    gen = GenerationConfig(height=512, width=512, num_inference_steps=STEPS,
+                           guidance_scale=7.5, sampler="dpmpp_2m",
+                           schedule="karras")
+    pipe = StableDiffusionTorch(cfg, loaded, tokenizer=tok)
+    c1, ids1 = pipe.encode_prompt([PROMPT], [NEG], clip_skip=2)
+    rb1 = pipe.encode_region([state], ids1, height=512, width=512)
+    spatial = want_launches(cfg, 512, STEPS, True, "xla")
+    serve(ctx, "weights_spatial",
+          lambda seed: pipe.txt2img(c1, gen, seed=seed, region_biases=rb1),
+          [0, 1, 2, 3], STEPS, spatial, 512)
+    pipe2 = StableDiffusionTorch(cfg, loaded, tokenizer=tok,
+                                 conv_impl="pallas2")
+    serve(ctx, "weights_pallas2",
+          lambda seed: pipe2.txt2img(c1, gen, seed=seed, region_biases=rb1),
+          [0, 1], STEPS, want_launches(cfg, 512, STEPS, True, "pallas2"), 512)
+    plain = to_uint8(pipe.txt2img(c1, gen, seed=0, region_biases=rb1)).cpu()
+    # 4. a LoRA and a textual-inversion file through get_variant
+    t0 = time.perf_counter()
+    lora_sd = lora_for(loaded, LORA_RANK, seed=5)
+    lora_path = os.path.join(root, "style_lora.safetensors")
+    save_file(lora_sd, lora_path)
+    ti_path = os.path.join(root, "sksstyle.safetensors")
+    vecs = (0.02 * np.random.default_rng(6).standard_normal(
+        (2, cfg.clip.hidden_size))).astype(np.float16)
+    save_file({TI_WORD: vecs}, ti_path)
+    lora_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, variant, vtok = manager.get_variant(
+        "sd15-disk", loras=[(lora_path, 0.8)], ti_embeddings=[ti_path])
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    _check_tree("the base tree after get_variant", loaded, expected,
+                extra_rows=64)
+    t0 = time.perf_counter()
+    merged = 0
+    for prefix, index, tree, base in (
+            ("lora_unet", lora._module_index(variant["unet"]),
+             variant["unet"], loaded["unet"]),
+            ("lora_te", lora._clip_module_index(variant["clip"]),
+             variant["clip"], loaded["clip"])):
+        for name, path in index.items():
+            mod = f"{prefix}_{lora._normalize(name)}"
+            got = lora._get(tree, path)["kernel"]
+            old = lora._get(base, path)["kernel"]
+            if f"{mod}.lora_up.weight" not in lora_sd:
+                if got is not old:
+                    raise AssertionError(f"weights: {name} was not in the "
+                                         f"LoRA but was replaced")
+                continue
+            want = host_lora_merge(
+                old, lora_sd[f"{mod}.lora_up.weight"].astype(np.float32),
+                lora_sd[f"{mod}.lora_down.weight"].astype(np.float32), 0.8)
+            if got is old or not torch.equal(got.cpu(), want) or (
+                    got.dim() == 4 and not got.is_contiguous(
+                        memory_format=torch.channels_last)):
+                raise AssertionError(f"weights: the merged {name} differs "
+                                     f"from the host numpy merge")
+            merged += 1
+    if merged != sum(k.endswith("lora_up.weight") for k in lora_sd):
+        raise AssertionError(f"weights: {merged} leaves merged")
+    table = variant["clip"]["token_embedding"]
+    ids = vtok.encode(f"{PROMPT}, {TI_WORD}")
+    v = cfg.clip.vocab_size
+    if ids[-3:-1] != [v, v + 1] or not torch.equal(
+            table[v:v + 2].cpu(), torch.from_numpy(vecs).to(table.dtype)):
+        raise AssertionError(f"weights: the TI vectors are not in the "
+                             f"table ({ids[-4:]})")
+    log(f"weights: a rank-{LORA_RANK} kohya LoRA of {merged} modules "
+        f"({os.path.getsize(lora_path) / 1e6:.1f} MB fp16) and a 2-vector "
+        f"TI file written in {lora_s:.2f} s; get_variant merged them in "
+        f"{merge_s:.2f} s; every merged leaf equal to the host numpy merge "
+        f"(checked in {time.perf_counter() - t0:.1f} s), the rest and the "
+        f"base tree unchanged, '{TI_WORD}' -> ids {ids[-3:-1]}")
+    vpipe = StableDiffusionTorch(cfg, variant, tokenizer=vtok)
+    cv, idsv = vpipe.encode_prompt([f"{PROMPT}, {TI_WORD}"], [NEG],
+                                   clip_skip=2)
+    rbv = vpipe.encode_region([state], idsv, height=512, width=512)
+    serve(ctx, "weights_lora_ti",
+          lambda seed: vpipe.txt2img(cv, gen, seed=seed, region_biases=rbv),
+          [0, 1, 2], STEPS, spatial, 512)
+    moved = int((to_uint8(vpipe.txt2img(cv, gen, seed=0, region_biases=rbv))
+                 .cpu().int() - plain.int()).abs().max())
+    if moved == 0:
+        raise AssertionError("weights: the LoRA and TI left the image as it "
+                             "was")
+    # 5. an IP-Adapter Plus file of depth 4 and a ControlNet file
+    enc_cfg, _ = manager.get_image_encoder()
+    ip_sd = plus_state_dict(cfg.unet, enc_cfg.hidden_size, PLUS_DEPTH, 0)
+    ip_path = os.path.join(root, "ip-adapter-plus_sd15.safetensors")
+    t0 = time.perf_counter()
+    save_file({f"{g}.{k}": v for g in ip_sd for k, v in ip_sd[g].items()},
+              ip_path)
+    ip_write = time.perf_counter() - t0
+    ref = synthetic_image(512, 7)[0] * 0.5 + 0.5
+    mask = right_half_mask(512)[0]
+    units = [api.IPAdapterUnit(ip_path, ref, mask=mask)]
+    ip_pipe, ads = ip_pipeline(manager, loaded, cfg, units, dev,
+                               torch.bfloat16)
+    if ads[0].variant != "resampler" or \
+            len(ads[0].proj_params["layers"]) != PLUS_DEPTH:
+        raise AssertionError("weights: the Plus file gave no depth-4 "
+                             "Resampler")
+    log(f"weights: IP-Adapter Plus file ({os.path.getsize(ip_path) / 1e6:.1f}"
+        f" MB, written in {ip_write:.2f} s): a {PLUS_DEPTH}-layer Resampler, "
+        f"{ads[0].num_tokens} tokens")
+
+    def run_ip(seed):
+        return ip_pipe.txt2img(c1, gen, seed=seed, region_biases=rb1,
+                               extras=ip_extras(manager, ip_pipe, units, ads))
+
+    serve(ctx, "weights_ip_plus4_masked", run_ip, [0, 1, 2], STEPS,
+          want_launches(cfg, 512, STEPS, True, "xla", ip_adapters=1,
+                        ip_once=ip_tower_launches(
+                            "resampler", enc_cfg.num_layers,
+                            resampler_layers=PLUS_DEPTH)),
+          512, strict=True)
+    defer_profile(ctx, lambda: run_ip(99), "weights_ip_plus4_masked")
+    cn_drawn = unit_controlnet(cfg.unet, 1, dev, torch.float32, HEAD_RMS)
+    cn_dir = os.path.join(root, "controlnet")
+    os.makedirs(cn_dir)
+    cn_file = os.path.join(cn_dir, "diffusion_pytorch_model.safetensors")
+    t0 = time.perf_counter()
+    save_file({k: v.to(torch.float16) for k, v in
+               diffusers_state_dict(cn_drawn).items()}, cn_file)
+    cn_write = time.perf_counter() - t0
+    cn_expected = _tree_map(_as_stored, cn_drawn)
+    del cn_drawn
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cn = manager.get_controlnet(cn_dir, cfg.unet)
+    torch.cuda.synchronize()
+    cn_load = time.perf_counter() - t0
+    n_cn = _check_tree("the ControlNet file", cn, cn_expected)
+    image = synthetic_image(512, 7) * 0.5 + 0.5
+
+    def run_cn(seed, net=cn):
+        return pipe.txt2img(c1, gen, seed=seed, region_biases=rb1,
+                            extras=pipe.build_controlnet_extras(
+                                gen, [net], [image], scales=[1.0]))
+
+    serve(ctx, "weights_controlnet", run_cn, [0, 1], STEPS,
+          want_launches(cfg, 512, STEPS, True, "xla", controlnets=1), 512,
+          strict=True)
+    if not torch.equal(to_uint8(run_cn(0)), to_uint8(run_cn(0, cn_expected))):
+        raise AssertionError("weights: the ControlNet file's image differs "
+                             "from the drawn ControlNet's")
+    log(f"weights: ControlNet file ({os.path.getsize(cn_file) / 1e9:.3f} GB "
+        f"fp16, written in {cn_write:.2f} s, loaded in {cn_load:.2f} s): "
+        f"{n_cn} leaves equal to the drawn ones, its image equal to theirs")
+    # 6. the loaded tree's layouts against the random init's: a converted
+    # 1x1 kernel has channels_last strides, the init's the contiguous ones
+    # (either tensor is contiguous in both formats, so .contiguous() keeps
+    # its strides: a copy into a fresh tensor sets them); the same values
+    # in both, profiled at the end of the run
+    init_strides = _tree_map(
+        lambda t: torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
+        if t.dim() == 4 and t.shape[2:] == (1, 1) else t, loaded)
+    k = init_strides["unet"]["down_blocks"][0]["attentions"][0]["proj_in"][
+        "kernel"]
+    if k.stride() != (k.shape[1], 1, 1, 1):
+        raise AssertionError(f"weights: a 1x1 kernel's strides {k.stride()}")
+    pipe_i = StableDiffusionTorch(cfg, init_strides, tokenizer=tok)
+    serve(ctx, "weights_spatial_init_strides",
+          lambda seed: pipe_i.txt2img(c1, gen, seed=seed, region_biases=rb1),
+          [0, 1, 2], STEPS, spatial, 512)
+    same = torch.equal(to_uint8(pipe_i.txt2img(c1, gen, seed=0,
+                                               region_biases=rb1)).cpu(),
+                       plain)
+    log(f"weights: the loaded tree with the init's 1x1-kernel strides gives "
+        f"{'the same' if same else 'another'} uint8 image")
+    for kind, p in (("weights_spatial", pipe),
+                    ("weights_spatial_init_strides", pipe_i)):
+        defer_profile(ctx, lambda p=p: p.txt2img(c1, gen, seed=99,
+                                                 region_biases=rb1), kind)
+    log(f"weights: p50 s/image after one warm-up: " + ", ".join(
+        f"{k} {ctx['p50'][k]:.4f}" for k in (
+            "weights_spatial", "weights_pallas2", "weights_lora_ti",
+            "weights_ip_plus4_masked", "weights_controlnet",
+            "weights_spatial_init_strides"))
+        + f"; host peak RSS {_maxrss_gb():.2f} GB, the card's peak "
+        f"allocation {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; the "
+        f"phase's requests served and checked in "
+        f"{time.perf_counter() - t_phase:.1f} s (card: {card_line()})")
+
+
 KERNEL_GROUPS = (  # (group, test on the lower-cased kernel name)
     # both attention bodies carry HAS_BIAS among their template arguments
     ("K1", lambda n: "dsc::attention" in n and "true" in n),
@@ -2717,7 +3316,8 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     run = {"build": phase_build, "kernels": phase_kernels,
-           "tiny": phase_tiny, "main": phase_main, "app": phase_app}
+           "tiny": phase_tiny, "main": phase_main, "weights": phase_weights,
+           "app": phase_app}
     t_all = time.perf_counter()
     for name in PHASES:
         if name not in phases:

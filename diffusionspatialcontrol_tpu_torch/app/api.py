@@ -12,20 +12,22 @@ routes it to
 ``StableDiffusionTPU``, with every check in the same order, so that a
 request the JAX package refuses gets the same error here.
 
-A unit's model name that is not an existing path gets random weights from
-the port's own generator (seed 0): a ControlNet with zero heads (a no-op,
-as in the JAX package) and a random T2I-Adapter (other values than the JAX
-package's ``PRNGKey(0)`` init). An IP-Adapter name gets the JAX package's
-own synthetic state dict (``ip_adapter.random_state_dict``, numpy, the same
-weights); the CLIP-vision tower and the face networks (when registered
-without a path) random weights from the port's generator.
+Registered checkpoint directories (diffusers layout), LoRAs,
+textual-inversion embeddings and the weight files of units, the image
+tower and the face networks are converted by ``convert/`` onto the
+manager's device. A unit's model name that is not an existing path gets
+random weights from the port's own generator (seed 0): a ControlNet with
+zero heads (a no-op, as in the JAX package) and a random T2I-Adapter
+(other values than the JAX package's ``PRNGKey(0)`` init). An IP-Adapter
+name gets the JAX package's own synthetic state dict
+(``ip_adapter.random_state_dict``, numpy, the same weights); the
+CLIP-vision tower and the face networks (when registered without a path)
+random weights from the port's generator.
 
 Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item where the JAX package would first use them: loading
-checkpoints, unit, image-encoder and face-network weights from disk, LoRAs
-and textual-inversion embeddings (item 17), the speed modes cfg-tail,
-DeepCache, bottleneck and TGATE (item 18) and the control preprocessors
-(item 20).
+ROADMAP item where the JAX package would first use them: the speed modes
+cfg-tail, DeepCache, bottleneck and TGATE (item 18) and the control
+preprocessors (item 20).
 """
 
 from __future__ import annotations
@@ -47,6 +49,15 @@ from ..config import (
     sd15_config,
     sd21_config,
 )
+from ..convert import lora as lora_mod
+from ..convert.hf import (
+    convert_clip_vision,
+    convert_controlnet,
+    convert_t2i_adapter,
+    load_pipeline_params,
+    load_state_dict,
+)
+from ..convert.textual_inversion import add_embeddings, load_embedding_file
 from ..device import resolve_device
 from ..models import factory
 from ..models import ip_adapter as ipa
@@ -57,8 +68,6 @@ from ..pipeline.pipeline import DenoiseExtras, StableDiffusionTorch, on_device
 from ..text.tokenizer import load_tokenizer
 from ..utils.profiling import PhaseTimer, Watchdog
 
-_LOADING = ("loading checkpoints, LoRAs and textual-inversion embeddings "
-            "(ROADMAP item 17)")
 _PREPROCESSORS = "the control preprocessors (ROADMAP item 20)"
 
 
@@ -137,8 +146,10 @@ class ModelManager:
         self._tokenizers: Dict[str, Any] = {}
         self._controlnets: Dict[str, Dict[str, Any]] = {}
         self._adapters: Dict[str, Dict[str, Any]] = {}
-        # the IP-Adapter networks' configs, None until registered
+        # the IP-Adapter networks' configs and weight paths, None until
+        # registered
         self._face_cfg = self._detector_spec = self._image_encoder_cfg = None
+        self._face_path = self._image_encoder_path = None
 
     def register(self, name: str, path: str,
                  model_cfg: Optional[ModelConfig] = None):
@@ -148,8 +159,6 @@ class ModelManager:
         """Register every reference-zoo checkpoint found under ``root``
         (one subdirectory per HF repo id's basename), with the SD2.x preset
         where the zoo requires it (registry.SD2_MODELS)."""
-        import os
-
         registered = []
         for display, repo_id in registry.MODEL_ZOO:
             path = os.path.join(root, repo_id.replace("/", "--"))
@@ -176,50 +185,106 @@ class ModelManager:
         self._tokenizers[name] = load_tokenizer()
 
     def get(self, name: str):
+        """(cfg, params, tokenizer) of a registered model; a checkpoint
+        directory is converted onto the manager's device at its first use,
+        with 64 spare rows in the token-embedding table for textual
+        inversion, and its ``tokenizer/`` read (the hash tokenizer when it
+        has no vocab files)."""
         if name not in self._dirs:
             raise KeyError(f"model {name!r} not registered")
-        cfg = self._dirs[name][1]
+        path, cfg = self._dirs[name]
         if name not in self._cache:
-            raise _not_ported(_LOADING)
+            self._cache[name] = load_pipeline_params(
+                path, cfg, self.dtype, n_extra_tokens=64, device=self.device)
+            self._tokenizers[name] = load_tokenizer(
+                os.path.join(path, "tokenizer"))
         return cfg, self._cache[name], self._tokenizers[name]
 
     def get_variant(self, name: str, loras: Sequence = (),
                     ti_embeddings: Sequence[str] = ()):
-        """(cfg, params, tokenizer); LoRA merges and textual-inversion
-        embeddings (the JAX package caches a variant per combination) wait
-        for ROADMAP item 17."""
+        """(cfg, params, tokenizer) with LoRA merges and textual-inversion
+        embeddings applied, cached per combination (reference:
+        load_lora_control_pipeline app.py:532-597 merges into weights;
+        add_embedding app.py:759-785 injects TI tokens). ``loras``: paths
+        or (path, scale) pairs. The base tree and tokenizer stay as they
+        were: a variant is a copy of the tree's containers whose merged
+        kernels and embedding table are new tensors."""
         cfg, base_params, base_tok = self.get(name)
-        if list(loras) or list(ti_embeddings):
-            raise _not_ported(_LOADING)
-        return cfg, base_params, base_tok
+        loras = [
+            (p, 1.0) if isinstance(p, str) else (p[0], float(p[1]))
+            for p in loras
+        ]
+        ti_embeddings = list(ti_embeddings)
+        if not loras and not ti_embeddings:
+            return cfg, base_params, base_tok
+        key = (
+            "variant", name,
+            tuple((str(p), s) for p, s in loras),
+            tuple(map(str, ti_embeddings)),
+        )
+        if key not in self._adapters:
+            params = ipa.copy_tree_containers(base_params)
+            for path, scale in loras:
+                lora_mod.merge_lora(
+                    params, load_state_dict(path).tensors, scale=scale)
+            tok = base_tok
+            if ti_embeddings:
+                embs: Dict[str, np.ndarray] = {}
+                for path in ti_embeddings:
+                    for k, v in load_embedding_file(path).items():
+                        # A1111 .pt files name the vector '*': the trigger
+                        # word is the file stem (reference: add_embedding,
+                        # app.py:759-785)
+                        nm = (os.path.splitext(os.path.basename(path))[0]
+                              if k == "*" else k)
+                        embs[nm] = v
+                clip = dict(params["clip"])
+                table = clip["token_embedding"]
+                need = cfg.clip.vocab_size + sum(
+                    np.atleast_2d(v).shape[0] for v in embs.values())
+                if table.shape[0] < need:
+                    # a random model's table has no spare rows
+                    clip["token_embedding"] = torch.cat([
+                        table, table.new_zeros((need - table.shape[0],
+                                                table.shape[1]))])
+                clip, tok = add_embeddings(clip, tok, embs,
+                                           cfg.clip.vocab_size)
+                params["clip"] = clip
+            self._adapters[key] = (params, tok)
+        params, tok = self._adapters[key]
+        return cfg, params, tok
 
     def _generator(self) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(0)
 
     def get_controlnet(self, name_or_path: str, unet_cfg):
-        """ControlNet parameters for a unit, cached by name. A name that is
-        not an existing path gets a random trunk with zero heads (a no-op);
-        converting weights from a path waits for ROADMAP item 17."""
+        """ControlNet parameters for a unit, cached by name: converted from
+        a weight path (a file or a diffusers directory), or for another name
+        a random trunk with zero heads (a no-op)."""
         if name_or_path not in self._controlnets:
             if os.path.exists(name_or_path):
-                raise _not_ported(_LOADING)
-            self._controlnets[name_or_path] = controlnet_init(
-                self._generator(), unet_cfg, dtype=self.dtype,
-                device=self.device)
+                cn = convert_controlnet(load_state_dict(name_or_path),
+                                        unet_cfg, self.dtype, self.device)
+            else:
+                cn = controlnet_init(self._generator(), unet_cfg,
+                                     dtype=self.dtype, device=self.device)
+            self._controlnets[name_or_path] = cn
         return self._controlnets[name_or_path]
 
     def get_t2i_adapter(self, name_or_path: str, unet_cfg=None):
-        """T2I-Adapter parameters for a unit, cached by name: random, with
-        the UNet's level widths (the SD1.5 adapter without ``unet_cfg``),
-        for a name that is not an existing path; weights from a path wait
-        for ROADMAP item 17."""
+        """T2I-Adapter parameters for a unit, cached by name: converted
+        from a weight path, or for another name random, with the UNet's
+        level widths (the SD1.5 adapter without ``unet_cfg``)."""
         if name_or_path not in self._adapters:
             if os.path.exists(name_or_path):
-                raise _not_ported(_LOADING)
-            cfg = (T2IAdapterConfig(channels=unet_cfg.block_out_channels)
-                   if unet_cfg is not None else T2IAdapterConfig())
-            self._adapters[name_or_path] = t2i_adapter_init(
-                self._generator(), cfg, dtype=self.dtype, device=self.device)
+                ad = convert_t2i_adapter(load_state_dict(name_or_path),
+                                         self.dtype, self.device)
+            else:
+                cfg = (T2IAdapterConfig(channels=unet_cfg.block_out_channels)
+                       if unet_cfg is not None else T2IAdapterConfig())
+                ad = t2i_adapter_init(self._generator(), cfg,
+                                      dtype=self.dtype, device=self.device)
+            self._adapters[name_or_path] = ad
         return self._adapters[name_or_path]
 
     _IP_VARIANTS = {
@@ -233,33 +298,33 @@ class ModelManager:
 
     def get_ip_adapter_state(self, name_or_path: str, unet_cfg):
         """The {image_proj, ip_adapter} numpy state dict of one adapter,
-        cached: a name that is not an existing file gets the JAX package's
-        synthetic weights of its variant (the base layout for an unknown
-        name), with the image tower's widths; weights from a file wait for
-        ROADMAP item 17."""
+        cached: read from a weight file, or for another name the JAX
+        package's synthetic weights of its variant (the base layout for an
+        unknown name), with the image tower's widths."""
         key = f"ip::{name_or_path}"
         if key not in self._adapters:
             if os.path.isfile(name_or_path):
-                ipa.load_ip_adapter_file(name_or_path)  # raises: item 17
-            variant = self._IP_VARIANTS.get(name_or_path, "linear")
-            enc_cfg, _ = self.get_image_encoder()
-            embed_dim = (enc_cfg.hidden_size if variant == "resampler"
-                         else enc_cfg.projection_dim)
-            self._adapters[key] = ipa.random_state_dict(
-                unet_cfg, variant, seed=0, embed_dim=embed_dim)
+                self._adapters[key] = ipa.load_ip_adapter_file(name_or_path)
+            else:
+                variant = self._IP_VARIANTS.get(name_or_path, "linear")
+                enc_cfg, _ = self.get_image_encoder()
+                embed_dim = (enc_cfg.hidden_size if variant == "resampler"
+                             else enc_cfg.projection_dim)
+                self._adapters[key] = ipa.random_state_dict(
+                    unet_cfg, variant, seed=0, embed_dim=embed_dim)
         return self._adapters[key]
 
     def register_face_embedder(self, path: Optional[str] = None, cfg=None):
         """The FaceID identity embedder: an ArcFace iResNet
-        (``models/arcface.py``) with random weights at ``cfg`` (the full
-        iResNet-50 by default), fp32 on the manager's device. Without a
-        registration the deterministic stub (``ops/face_embed.py``) embeds.
-        Weights from ``path`` wait for ROADMAP item 17."""
+        (``models/arcface.py``) at ``cfg`` (the full iResNet-50 by default),
+        fp32 on the manager's device, converted from an ``arcface_torch``
+        ``backbone.pth`` at ``path`` (the insightface buffalo_l recognition
+        weights' torch layout) or with random weights. Without a
+        registration the deterministic stub (``ops/face_embed.py``)
+        embeds."""
         from ..models.arcface import ArcFaceConfig
 
-        if path:
-            raise _not_ported(f"face-embedder weights from {path!r}: "
-                              + _LOADING)
+        self._face_path = path
         self._face_cfg = cfg or ArcFaceConfig()
         self._adapters.pop("face_embedder", None)
 
@@ -272,10 +337,19 @@ class ModelManager:
             from ..ops.face_embed import embed_face
 
             return embed_face
-        from ..models.arcface import arcface_init, make_arcface_embedder
+        from ..models.arcface import (
+            arcface_init,
+            convert_arcface,
+            make_arcface_embedder,
+        )
 
-        params = arcface_init(self._generator(), self._face_cfg,
-                              torch.float32, self.device)
+        if self._face_path:
+            params = convert_arcface(load_state_dict(self._face_path).arrays(),
+                                     self._face_cfg, torch.float32,
+                                     self.device)
+        else:
+            params = arcface_init(self._generator(), self._face_cfg,
+                                  torch.float32, self.device)
         fn = make_arcface_embedder(params, self._face_cfg)
         self._adapters["face_embedder"] = fn
         return fn
@@ -283,18 +357,17 @@ class ModelManager:
     def register_face_detector(self, path: Optional[str] = None, cfg=None,
                                top1_fallback: bool = False):
         """The FaceID face detector and aligner: an SCRFD-class network
-        (``models/face_detect.py``) with random weights at ``cfg`` (its
-        640^2 default), fp32 on the manager's device. Once registered,
+        (``models/face_detect.py``) at ``cfg`` (its 640^2 default), fp32 on
+        the manager's device, converted from an insightface ``scrfd`` torch
+        checkpoint at ``path`` or with random weights. Once registered,
         FaceID units detect, align and then embed the raw photo; without
         one the image is taken as an aligned crop. ``top1_fallback``: the
         best anchor when none clears the threshold (random weights detect
-        nothing). Weights from ``path`` wait for ROADMAP item 17."""
+        nothing)."""
         from ..models.face_detect import FaceDetectConfig
 
-        if path:
-            raise _not_ported(f"face-detector weights from {path!r}: "
-                              + _LOADING)
-        self._detector_spec = (cfg or FaceDetectConfig(), top1_fallback)
+        self._detector_spec = (path, cfg or FaceDetectConfig(),
+                               top1_fallback)
         self._adapters.pop("face_aligner", None)
 
     def get_face_aligner(self):
@@ -305,11 +378,19 @@ class ModelManager:
             return self._adapters["face_aligner"]
         if self._detector_spec is None:
             return None
-        from ..models.face_detect import make_face_aligner, scrfd_init
+        from ..models.face_detect import (
+            convert_scrfd,
+            make_face_aligner,
+            scrfd_init,
+        )
 
-        cfg, top1 = self._detector_spec
-        params = scrfd_init(self._generator(), cfg, torch.float32,
-                            self.device)
+        path, cfg, top1 = self._detector_spec
+        if path:
+            params = convert_scrfd(load_state_dict(path).arrays(), cfg,
+                                   torch.float32, self.device)
+        else:
+            params = scrfd_init(self._generator(), cfg, torch.float32,
+                                self.device)
         fn = make_face_aligner(params, cfg, top1_fallback=top1)
         self._adapters["face_aligner"] = fn
         return fn
@@ -322,19 +403,18 @@ class ModelManager:
         raise _not_ported(_PREPROCESSORS)
 
     def register_image_encoder(self, path: Optional[str] = None, cfg=None):
-        """The IP-Adapter image encoder's config (``CLIPVisionConfig``,
-        ViT-H/14 by default); weights from ``path`` wait for ROADMAP item
-        17."""
-        if path:
-            raise _not_ported(f"image-encoder weights from {path!r}: "
-                              + _LOADING)
+        """The IP-Adapter image encoder: its config (``CLIPVisionConfig``,
+        ViT-H/14 by default) and a CLIPVisionModelWithProjection weight
+        path (random weights without one)."""
+        self._image_encoder_path = path
         self._image_encoder_cfg = cfg
         self._adapters.pop("image_encoder", None)
 
     def get_image_encoder(self):
-        """(CLIPVisionConfig, params) of the IP-Adapter image encoder:
-        random weights from the port's generator, in the manager's dtype on
-        its device, built at first use."""
+        """(CLIPVisionConfig, params) of the IP-Adapter image encoder,
+        converted from the registered weights or random from the port's
+        generator, in the manager's dtype on its device, built at first
+        use."""
         if "image_encoder" not in self._adapters:
             from ..models.clip_vision import (
                 CLIPVisionConfig,
@@ -342,9 +422,15 @@ class ModelManager:
             )
 
             cfg = self._image_encoder_cfg or CLIPVisionConfig()
-            self._adapters["image_encoder"] = (cfg, clip_vision_init(
-                self._generator(), cfg, dtype=self.dtype,
-                device=self.device))
+            if self._image_encoder_path:
+                params = convert_clip_vision(
+                    load_state_dict(self._image_encoder_path), cfg,
+                    self.dtype, self.device)
+            else:
+                params = clip_vision_init(self._generator(), cfg,
+                                          dtype=self.dtype,
+                                          device=self.device)
+            self._adapters["image_encoder"] = (cfg, params)
         return self._adapters["image_encoder"]
 
 
@@ -388,7 +474,7 @@ def inference(
     controlnet_units: Sequence[ControlNetUnit] = (),
     t2i_units: Sequence[T2IAdapterUnit] = (),
     ip_adapter_units: Sequence[IPAdapterUnit] = (),
-    # model variants (ROADMAP item 17)
+    # model variants
     loras: Sequence = (),  # paths or (path, scale) pairs
     ti_embeddings: Sequence[str] = (),
     # extras

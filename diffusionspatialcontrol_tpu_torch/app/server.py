@@ -29,7 +29,8 @@ an error (400 for a caller's mistake, 501 for a path not ported yet, 500
 otherwise); none is answered 200 without its images.
 
 CLI: ``python -m diffusionspatialcontrol_tpu_torch.app.server
---random-model NAME[:FAMILY[:SEED]] [--device cuda|cpu]``.
+--model NAME=DIR | --zoo ROOT | --random-model NAME[:FAMILY[:SEED]]
+[--device cuda|cpu]``.
 """
 
 from __future__ import annotations
@@ -48,9 +49,7 @@ import numpy as np
 
 from .. import registry
 from .api import (
-    _LOADING,
     ModelManager,
-    _not_ported,
     default_warmup_configs,
     inference,
     warmup,
@@ -485,13 +484,19 @@ def build_manager_from_args(args) -> ModelManager:
 
     from ..config import MODEL_FAMILIES
 
-    if args.model or args.zoo:
-        # a registered checkpoint could only be refused at its first request
-        raise _not_ported(_LOADING)
     manager = ModelManager(
         dtype=torch.float32 if args.dtype == "f32" else torch.bfloat16,
         device=args.device,
     )
+    for spec in args.model:
+        if "=" not in spec:
+            raise SystemExit(f"--model expects NAME=DIR, got {spec!r}")
+        name, path = spec.split("=", 1)
+        manager.register(name, path)
+    if args.zoo:
+        names = manager.register_zoo(args.zoo)
+        if not names:
+            raise SystemExit(f"--zoo {args.zoo}: no zoo checkpoints found")
     for spec in args.random_model:
         parts = spec.split(":")
         name = parts[0]
@@ -516,8 +521,8 @@ def build_manager_from_args(args) -> ModelManager:
         manager.register_face_embedder(path=args.face_embedder)
     if not manager._dirs:
         raise SystemExit(
-            "no models registered; pass --random-model "
-            "NAME[:FAMILY[:SEED]]"
+            "no models registered; pass --model NAME=DIR, --zoo ROOT "
+            "and/or --random-model NAME[:FAMILY[:SEED]]"
         )
     return manager
 
@@ -532,11 +537,12 @@ def parse_args(argv=None):
     )
     p.add_argument("--model", action="append", default=[],
                    metavar="NAME=DIR",
-                   help="a diffusers-layout checkpoint directory "
-                   "(repeatable; raises until ROADMAP item 17 loads them)")
+                   help="register a diffusers-layout checkpoint directory "
+                   "(repeatable; converted onto the device at its first "
+                   "request)")
     p.add_argument("--zoo", metavar="ROOT",
-                   help="every reference-zoo checkpoint under ROOT "
-                   "(raises until ROADMAP item 17)")
+                   help="register every reference-zoo checkpoint found "
+                   "under ROOT (registry.MODEL_ZOO names)")
     p.add_argument("--random-model", action="append", default=[],
                    metavar="NAME[:FAMILY[:SEED]]",
                    help="register a random-init model (weightless demo/"
@@ -545,13 +551,11 @@ def parse_args(argv=None):
                    metavar="NAME=WEIGHTS",
                    help="control-preprocessor weights (ROADMAP item 20)")
     p.add_argument("--image-encoder", metavar="WEIGHTS",
-                   help="CLIP-vision weights for IP-Adapter (raises until "
-                   "ROADMAP item 17 loads weight files; without it the "
-                   "tower has random weights)")
+                   help="CLIP-vision weights for IP-Adapter embedding "
+                   "(without them the tower has random weights)")
     p.add_argument("--face-embedder", metavar="WEIGHTS",
-                   help="ArcFace weights for IP-Adapter FaceID (raises "
-                   "until ROADMAP item 17; without it the stub embedder "
-                   "runs)")
+                   help="ArcFace recognition weights for IP-Adapter FaceID "
+                   "(without them the stub embedder runs)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=7860)
     p.add_argument("--dtype", choices=["bf16", "f32"], default="bf16")

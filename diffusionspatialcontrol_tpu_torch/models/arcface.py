@@ -155,8 +155,8 @@ def _conv_w(sd, key, dtype, device):
 def convert_arcface(sd, cfg: ArcFaceConfig = ArcFaceConfig(),
                     dtype=torch.float32, device=None) -> Dict[str, Any]:
     """``sd``: name -> array of an arcface_torch iResNet ``backbone.pth``
-    (keys conv1/bn1/prelu/layer1..4/bn2/fc/features), already in memory
-    (reading the file is ROADMAP item 17)."""
+    (keys conv1/bn1/prelu/layer1..4/bn2/fc/features), in memory
+    (``convert.hf.load_state_dict(path).arrays()`` reads the file)."""
     def alpha(key):
         return {"alpha": torch.tensor(_get(sd, key)).to(dtype=dtype,
                                                         device=device)}

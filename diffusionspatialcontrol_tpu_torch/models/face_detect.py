@@ -450,8 +450,8 @@ def convert_scrfd(state: Dict[str, np.ndarray],
     ``backbone.stem.{0,1,2}.{conv,bn}``, ``backbone.layer{1..4}.{i}.*``,
     ``neck.lateral_convs/fpn_convs.{i}.conv``, ``bbox_head.cls_convs.{i}
     .conv`` and ``bbox_head.{cls,reg,kps}_pred``) -> this module's tree;
-    BatchNorm running stats are folded into per-channel affines. Reading a
-    checkpoint file is ROADMAP item 17."""
+    BatchNorm running stats are folded into per-channel affines
+    (``convert.hf.load_state_dict(path).arrays()`` reads the file)."""
 
     def t(a):
         return torch.tensor(np.asarray(a, np.float32)).to(dtype=dtype,

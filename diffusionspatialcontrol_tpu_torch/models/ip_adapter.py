@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import UNetConfig
+from ..convert.safetensors import load_file
 from ..device import resolve_device
 from ..ops.kernels.flash_attention import flash_attention_nlhd
 from .layers import layer_norm, linear
@@ -293,9 +294,21 @@ def split_ip_adapter_state_dict(
 
 
 def load_ip_adapter_file(path: str) -> Dict[str, Dict[str, np.ndarray]]:
-    raise NotImplementedError(
-        f"IP-Adapter weights from {path!r}: loading weight files is ROADMAP "
-        f"item 17, not ported to the PyTorch package yet")
+    """One IP-Adapter weight file (``.safetensors`` with ``image_proj.`` and
+    ``ip_adapter.`` prefixes, or a torch pickle, read with
+    ``weights_only=True``, of the two groups or of prefixed names) -> the
+    split {image_proj, ip_adapter} groups of fp32 numpy arrays."""
+    if path.endswith(".safetensors"):
+        return split_ip_adapter_state_dict(
+            {k: v.float().numpy() for k, v in load_file(path).items()})
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "image_proj" in sd and "ip_adapter" in sd:
+        return {
+            g: {k: v.float().numpy() for k, v in sd[g].items()}
+            for g in ("image_proj", "ip_adapter")
+        }
+    return split_ip_adapter_state_dict(
+        {k: v.float().numpy() for k, v in sd.items()})
 
 
 def random_state_dict(

@@ -14,6 +14,8 @@
 """
 
 import dataclasses
+import os
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -606,14 +608,15 @@ def _stub_unit_models(m, log, real):
     """Record the manager's unit-model and preprocessor calls and hand the
     pipeline a name in place of each model. With ``real``, the manager's
     own methods run first (the port: a random model, or the raise for a
-    path or a preprocessor); the JAX package's would build or load a model,
-    so its side only records."""
+    preprocessor); the JAX package's would build a random model, so its
+    side only records. A model from a path is loaded in both packages."""
     def stub(name, what):
         own = getattr(m, name)
 
         def call(model, *args, **kwargs):
             log.append((name, model))
-            if real:
+            if real or (name != "get_preprocessor"
+                        and os.path.exists(model)):
                 own(model, *args, **kwargs)
             return (lambda img, **kw: np.asarray(img, np.float32)) \
                 if name == "get_preprocessor" else f"{what} {model}"
@@ -734,9 +737,10 @@ def test_inference_routes_as_jax(kwargs, monkeypatch):
     same arguments in the same order, and return images of the same shape
     or raise the same error. A request JAX sends to a speed mode raises
     NotImplementedError naming ROADMAP item 18 in the port, after the same
-    calls; a unit model from a path raises naming item 17, and a unit's
-    preprocessor naming item 20, at the manager call where the JAX package
-    would load the model or build the preprocessor. The unit images the
+    calls; a unit's preprocessor raises naming item 20, at the manager call
+    where the JAX package would build it. A unit model from a path is
+    loaded by both packages (a file that is no weight file raises the same
+    error in both). The unit images the
     extras builders get (fitted to the request's size, or the hires pass's)
     are equal to 1e-6."""
     jarr, tarr = [], []
@@ -747,8 +751,7 @@ def test_inference_routes_as_jax(kwargs, monkeypatch):
         assert tout[0] == "NotImplementedError" and "item 18" in tout[1]
         jlog = jlog[:jlog.index(speed[0])]
     elif tout[0] == "NotImplementedError" and jout[0] == "ok":
-        item = 20 if tlog[-1][0] == "get_preprocessor" else 17
-        assert f"item {item}" in tout[1] and tlog[-1][0].startswith("get_")
+        assert "item 20" in tout[1] and tlog[-1][0] == "get_preprocessor"
         jlog, jarr = jlog[:len(tlog)], []
     else:
         assert tout == jout
@@ -905,43 +908,53 @@ def test_watchdog_and_progress_cb_stop_a_run(manager):
 
 
 def test_unported_paths_raise_naming_their_item(manager, tmp_path):
-    """What is not ported raises naming its ROADMAP item: unit, image-encoder
-    and face-network weights from a path (17) and a unit's preprocessor
-    (20) among them; a unit model by name runs, and so do the IP-Adapter
-    getters (tests/test_torch_units.py and tests/test_torch_ip_adapter.py
-    have the units' parity)."""
+    """What is not ported raises naming its ROADMAP item: a unit's
+    preprocessor (20) and the speed modes (18). Weights from a path load
+    (tests/test_torch_convert.py, test_torch_lora_ti.py): a path that holds
+    no weight file raises what the JAX package raises there, at the first
+    use of what it names. A unit model by name runs, and so do the
+    IP-Adapter getters (tests/test_torch_units.py and
+    tests/test_torch_ip_adapter.py have the units' parity)."""
     base = dict(prompt=PROMPT, model="tiny", steps=2, width=64, height=64,
                 dtype=torch.float32)
     img = np.zeros((64, 64, 3), np.float32)
     for kwargs, item in (
             ({"controlnet_units": [tapi.ControlNetUnit(
                 "Canny", img, preprocessor="Canny")]}, 20),
-            ({"t2i_units": [tapi.T2IAdapterUnit(str(tmp_path), img)]}, 17),
-            ({"ip_adapter_units": [tapi.IPAdapterUnit(__file__, img)]},
-             17),
-            ({"loras": ["style.safetensors"]}, 17),
-            ({"ti_embeddings": ["emb.pt"]}, 17),
             ({"tgate_gate_frac": 0.5}, 18)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             tapi.inference(manager, **{**base, **kwargs})
-    manager.register("on disk", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        manager.get("on disk")
+    for kwargs, error in (
+            ({"t2i_units": [tapi.T2IAdapterUnit(str(tmp_path), img)]},
+             FileNotFoundError),
+            ({"ip_adapter_units": [tapi.IPAdapterUnit(__file__, img)]},
+             pickle.UnpicklingError),
+            ({"loras": [str(tmp_path / "style.safetensors")]},
+             FileNotFoundError),
+            ({"ti_embeddings": [str(tmp_path / "emb.pt")]},
+             FileNotFoundError)):
+        with pytest.raises(error):
+            tapi.inference(manager, **{**base, **kwargs})
     unet = tcfg.tiny_config().unet
-    for call, item in ((lambda: manager.get_controlnet(str(tmp_path), unet),
-                        17),
-                       (lambda: manager.get_t2i_adapter(str(tmp_path)), 17),
-                       (lambda: manager.get_ip_adapter_state(__file__, unet),
-                        17),
-                       (lambda: manager.register_image_encoder(
-                           str(tmp_path)), 17),
-                       (lambda: manager.register_face_embedder(
-                           "backbone.pth"), 17),
-                       (lambda: manager.register_face_detector(
-                           "scrfd.pth"), 17),
-                       (lambda: manager.get_preprocessor("Canny"), 20),
-                       (lambda: manager.register_preprocessor("Depth"), 20)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+    disk = tapi.ModelManager(dtype=torch.float32, device="cpu")
+    disk.register("on disk", str(tmp_path))
+    for call in (lambda: disk.get("on disk"),
+                 lambda: disk.get_controlnet(str(tmp_path), unet),
+                 lambda: disk.get_t2i_adapter(str(tmp_path))):
+        with pytest.raises(FileNotFoundError, match="no weight file"):
+            call()
+    with pytest.raises(pickle.UnpicklingError):
+        disk.get_ip_adapter_state(__file__, unet)
+    disk.register_image_encoder(str(tmp_path))
+    disk.register_face_embedder(str(tmp_path / "backbone.pth"))
+    disk.register_face_detector(str(tmp_path / "scrfd.pth"))
+    for call in (disk.get_image_encoder, disk.get_face_embedder,
+                 disk.get_face_aligner):
+        with pytest.raises(FileNotFoundError):
+            call()
+    for call in (lambda: manager.get_preprocessor("Canny"),
+                 lambda: manager.register_preprocessor("Depth")):
+        with pytest.raises(NotImplementedError, match="item 20"):
             call()
     with pytest.raises(KeyError, match="not registered"):
         manager.get("nope")

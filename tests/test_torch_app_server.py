@@ -6,8 +6,9 @@ on the CPU: identical POSTs return identical PNGs, equal to the native
 codec's encoding of a direct ``inference()`` call; the job queue reports
 progress, runs to done and cancels a queued job; ``/warmup`` returns one
 record per config; ControlNet, T2I-Adapter and IP-Adapter units run;
-errors answer 400 (a caller's mistake), 404 or 501 (not ported yet), never
-200. ``_inference_kwargs`` of both packages turn the
+errors answer 400 (a caller's mistake), 404, 501 (not ported yet) or 500,
+never 200; a server started with ``--model`` and ``--zoo`` serves a
+checkpoint directory. ``_inference_kwargs`` of both packages turn the
 same JSON payloads into equal keyword arguments (no JAX program runs).
 """
 
@@ -162,7 +163,7 @@ def test_warmup_returns_one_record_per_config(server):
          "preprocessor": "Canny"}]}, 501, "item 20"),
     ("ip-adapter unit", {**BASE, "ip_adapter_units": [
         {"model": os.path.abspath(__file__), "image_embeds": [0.0] * 8}]},
-     501, "item 17"),
+     500, "UnpicklingError"),
     ("speed mode", {**BASE, "deepcache_interval": 3}, 501, "item 18"),
 ], ids=lambda c: c[0])
 def test_generate_errors(server, case):
@@ -360,15 +361,24 @@ def test_cli_builds_a_cpu_manager_and_refuses_unported_flags():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tserver.build_manager_from_args(tserver.parse_args(
                 ["--random-model", "t:tiny"]))
-    for flags, item in ((["--model", "sd15=/models/sd15"], 17),
-                        (["--model", "nodir"], 17),
-                        (["--zoo", "/models"], 17),
-                        (["--preprocessor", "Depth=dpt.safetensors"], 20),
-                        (["--image-encoder", "clip.safetensors"], 17),
-                        (["--face-embedder", "arcface.pth"], 17)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+    # checkpoints and weight files register (they load at first use);
+    # a bad --model or an empty --zoo stops the CLI with the JAX messages
+    m = tserver.build_manager_from_args(tserver.parse_args([
+        "--model", "sd15=/models/sd15", "--image-encoder", "clip.safetensors",
+        "--face-embedder", "arcface.pth", "--device", "cpu"]))
+    assert m._dirs["sd15"][0] == "/models/sd15"
+    assert m._dirs["sd15"][1].name == "sd15" and m.dtype == torch.bfloat16
+    assert m._image_encoder_path == "clip.safetensors"
+    assert m._face_path == "arcface.pth"
+    for flags, text in ((["--model", "nodir"], "expects NAME=DIR"),
+                        (["--zoo", "/models"], "no zoo checkpoints")):
+        with pytest.raises(SystemExit, match=text):
             tserver.build_manager_from_args(tserver.parse_args(
                 ["--random-model", "t:tiny", "--device", "cpu", *flags]))
+    with pytest.raises(NotImplementedError, match="item 20"):
+        tserver.build_manager_from_args(tserver.parse_args(
+            ["--random-model", "t:tiny", "--device", "cpu",
+             "--preprocessor", "Depth=dpt.safetensors"]))
     with pytest.raises(NotImplementedError, match="item 20"):
         tserver.main(["--gradio", "--random-model", "t:tiny",
                       "--device", "cpu"])
@@ -376,3 +386,43 @@ def test_cli_builds_a_cpu_manager_and_refuses_unported_flags():
                 ["--device", "cpu"]):
         with pytest.raises(SystemExit):
             tserver.build_manager_from_args(tserver.parse_args(bad))
+
+
+def test_server_serves_a_checkpoint_directory(tmp_path):
+    """``--model NAME=DIR`` and ``--zoo ROOT`` register a tiny diffusers
+    directory (the SD1.5 preset the flags register is swapped for the tiny
+    one before the first request); its POST equals a direct ``inference()``
+    and both equal the image of the tree the directory was written from."""
+    from tests.test_torch_convert import randomized, write_checkpoint
+
+    from diffusionspatialcontrol_tpu_torch.models import factory
+
+    tree = randomized(factory.init_pipeline_params(
+        0, tiny_config(), torch.float32, device="cpu"), 12)
+    ckpt = write_checkpoint(tmp_path / "ckpt", tree, "fp32")
+    (tmp_path / "zoo").mkdir()
+    os.symlink(ckpt, tmp_path / "zoo" / "stable-diffusion-v1-5")
+    m = tserver.build_manager_from_args(tserver.parse_args(
+        ["--model", f"disk={ckpt}", "--zoo", str(tmp_path / "zoo"),
+         "--device", "cpu", "--dtype", "f32"]))
+    names = japi.ModelManager().register_zoo(str(tmp_path / "zoo"))
+    assert len(names) == 1 and sorted(m._dirs) == sorted(["disk"] + names)
+    for name, (path, _) in list(m._dirs.items()):
+        m._dirs[name] = (path, tiny_config())
+    ref = tapi.ModelManager(dtype=torch.float32, device="cpu")
+    ref.register_random("ref", tiny_config())
+    ref._cache["ref"] = tree
+    srv = tserver.serve(m, port=0, block=False)
+    try:
+        assert sorted(_call(srv, "/models")[1]["models"]) == sorted(m._dirs)
+        payload = {**BASE, "model": "disk", "region_state": _state_json()}
+        status, out = _call(srv, "/generate", payload)
+        assert status == 200
+        want = tapi.inference(ref, **tserver._inference_kwargs(
+            {**payload, "model": "ref"}))["images"][0]
+        assert base64.b64decode(out["images"][0]) == native.encode_png(want)
+        assert _call(srv, "/generate", {**payload, "model": names[0]})[0] \
+            == 200
+    finally:
+        srv.shutdown()
+        srv.server_close()

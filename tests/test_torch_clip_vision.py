@@ -22,6 +22,7 @@ import torch
 from diffusionspatialcontrol_tpu.models import clip_vision as jcv
 from diffusionspatialcontrol_tpu_torch.convert.from_jax import params_from_jax
 from diffusionspatialcontrol_tpu_torch.models import clip_vision as tcv
+from tests.test_torch_controlnet import to_jax
 
 # One intra-op thread per xdist worker: the workers share the CPU's cores.
 torch.set_num_threads(1)
@@ -43,7 +44,10 @@ def test_config_defaults_equal_jax():
 @pytest.mark.parametrize("hidden", [False, True])
 def test_clip_vision_apply_matches_jax(hidden):
     jc, tc = jcv.CLIPVisionConfig(**TINY), tcv.CLIPVisionConfig(**TINY)
-    jp = jcv.clip_vision_init(jax.random.PRNGKey(0), jc, jnp.float32)
+    # the port's init (the JAX init's tree: test_port_init_has_the_jax_tree)
+    # in the JAX layouts; the JAX init compiles each of its random ops
+    jp = to_jax(tcv.clip_vision_init(torch.Generator().manual_seed(0), tc,
+                                     torch.float32, "cpu"))
     # the init's norms are ones and zeros: draw them, so they count
     rng = np.random.default_rng(1)
     jp = jax.tree_util.tree_map(
@@ -64,10 +68,10 @@ def test_port_init_has_the_jax_tree():
     tc = tcv.CLIPVisionConfig(**TINY)
     tp = tcv.clip_vision_init(torch.Generator().manual_seed(0), tc,
                               torch.float32, "cpu")
-    jp = jcv.clip_vision_init(jax.random.PRNGKey(0),
-                              jcv.CLIPVisionConfig(**TINY), jnp.float32)
-    conv = params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
-                           device="cpu")
+    shapes = jax.eval_shape(lambda: jcv.clip_vision_init(
+        jax.random.PRNGKey(0), jcv.CLIPVisionConfig(**TINY), jnp.float32))
+    conv = params_from_jax(jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, s.dtype), shapes), device="cpu")
     assert jax.tree_util.tree_structure(
         jax.tree_util.tree_map(lambda t: 0, tp)) == \
         jax.tree_util.tree_structure(jax.tree_util.tree_map(lambda t: 0,

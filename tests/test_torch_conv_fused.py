@@ -153,8 +153,9 @@ def test_vae_decode_fused_matches_jax_xla(vae_params, conv_impl):
     jp, tp = vae_params
     z = (np.random.default_rng(2).standard_normal((1, 8, 8, 4)) * 0.2).astype(
         np.float32)
-    want = np.asarray(jvae.vae_decode(jp, jcfg.tiny_config().vae,
-                                      jnp.asarray(z)))
+    # jitted: one compile of the decoder, not one an op
+    want = np.asarray(jax.jit(jvae.vae_decode, static_argnums=(1,))(
+        jp, jcfg.tiny_config().vae, jnp.asarray(z)))
     got = tvae.vae_decode(tp, tcfg.tiny_config().vae, torch.from_numpy(z),
                           conv_impl=conv_impl)
     assert got.shape == (1, 64, 64, 3) and got.dtype == torch.float32

@@ -74,6 +74,11 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
+# the networks' JAX references jitted: one compile a network, not one an op
+_jax_scrfd = jax.jit(jfd.scrfd_apply, static_argnums=(2,))
+_jax_arcface = jax.jit(jaf.arcface_apply, static_argnums=(1,))
+
+
 @pytest.fixture(scope="module")
 def nets():
     """(JAX SCRFD, the port's, JAX ArcFace, the port's) at the tiny
@@ -91,7 +96,7 @@ def test_scrfd_apply_matches_jax(nets):
     jdet, tdet, _, _ = nets
     x = np.random.default_rng(5).standard_normal((2, 64, 64, 3)).astype(
         np.float32)
-    want = jfd.scrfd_apply(jdet, jnp.asarray(x), jfd.FACEDETECT_TINY)
+    want = _jax_scrfd(jdet, jnp.asarray(x), jfd.FACEDETECT_TINY)
     got = tfd.scrfd_apply(tdet, torch.from_numpy(x), tfd.FACEDETECT_TINY)
     assert len(got) == len(want) == 3
     for g3, w3 in zip(got, want):
@@ -105,7 +110,7 @@ def test_arcface_apply_matches_jax(nets):
     _, _, jarc, tarc = nets
     x = np.random.default_rng(6).uniform(-1, 1, (2, 32, 32, 3)).astype(
         np.float32)
-    want = np.asarray(jaf.arcface_apply(jarc, jaf.ARCFACE_TINY,
+    want = np.asarray(_jax_arcface(jarc, jaf.ARCFACE_TINY,
                                         jnp.asarray(x)))
     got = taf.arcface_apply(tarc, taf.ARCFACE_TINY, torch.from_numpy(x))
     assert got.shape == want.shape == (2, 32) and got.dtype == torch.float32
@@ -172,7 +177,7 @@ def test_decode_scrfd_matches_jax(nets, thresh, top1):
     x = np.random.default_rng(9).standard_normal((1, 64, 64, 3)).astype(
         np.float32)
     outs = [tuple(np.asarray(t) for t in o) for o in
-            jfd.scrfd_apply(jdet, jnp.asarray(x), jfd.FACEDETECT_TINY)]
+            _jax_scrfd(jdet, jnp.asarray(x), jfd.FACEDETECT_TINY)]
     kw = dict(det_scale=0.8, score_thresh=thresh, top1_fallback=top1)
     gd, gk = tfd.decode_scrfd(outs, tfd.FACEDETECT_TINY, **kw)
     wd, wk = jfd.decode_scrfd(outs, jfd.FACEDETECT_TINY, **kw)
@@ -311,7 +316,7 @@ def test_converters_match_jax():
     x = rng.uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32)
     np.testing.assert_allclose(
         taf.arcface_apply(got, taf.ARCFACE_TINY, torch.from_numpy(x)).numpy(),
-        np.asarray(jaf.arcface_apply(want, jaf.ARCFACE_TINY, jnp.asarray(x))),
+        np.asarray(_jax_arcface(want, jaf.ARCFACE_TINY, jnp.asarray(x))),
         rtol=1e-5, atol=1e-4)
     sd = _scrfd_sd(tfd.FACEDETECT_TINY, rng)
     got = tfd.convert_scrfd(sd, tfd.FACEDETECT_TINY, torch.float32, "cpu")

@@ -43,6 +43,10 @@ UNITS = tuple(f"diffusionspatialcontrol_tpu_torch.models.{m}"
 IP_ADAPTER = tuple(f"diffusionspatialcontrol_tpu_torch.{m}" for m in (
     "models.ip_adapter", "models.clip_vision", "models.arcface",
     "models.face_detect", "ops.face_embed"))
+# weights from disk: the port's own safetensors reader and writer is its
+# only way to the format (the card's machine has no safetensors package)
+CONVERT = tuple(f"diffusionspatialcontrol_tpu_torch.convert.{m}" for m in (
+    "safetensors", "hf", "lora", "textual_inversion", "cache"))
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -52,7 +56,8 @@ for name in names:
     importlib.import_module(name)
 print(json.dumps({"modules": names, "loaded": sorted(
     m for m in sys.modules
-    if m.split(".")[0] in ("jax", "jaxlib", "diffusionspatialcontrol_tpu"))}))
+    if m.split(".")[0] in ("jax", "jaxlib", "diffusionspatialcontrol_tpu",
+                           "safetensors"))}))
 """
 
 
@@ -64,7 +69,8 @@ def test_importing_every_port_module_loads_no_jax():
                          check=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(result["modules"]) >= 20
-    assert set(APP_LAYER + UNITS + IP_ADAPTER) <= set(result["modules"])
+    assert set(APP_LAYER + UNITS + IP_ADAPTER + CONVERT) <= \
+        set(result["modules"])
     assert result["loaded"] == []
 
 
@@ -84,6 +90,13 @@ def _imported_roots(path: Path):
 def test_source_imports_neither_jax_nor_the_jax_package(path):
     roots = _imported_roots(path)
     assert not roots & {"jax", "jaxlib", "diffusionspatialcontrol_tpu"}, roots
+
+
+@pytest.mark.parametrize("path", sorted(
+    [ROOT / "chip_smoke.py", *PACKAGE.rglob("*.py")], key=str),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_does_not_import_the_safetensors_package(path):
+    assert "safetensors" not in _imported_roots(path)
 
 
 def test_chip_smoke_without_a_card_fails_and_prints_no_result():
@@ -138,3 +151,18 @@ def test_ip_adapter_entry_points_default_to_cuda_and_raise_without_it():
         ip_adapter.convert_image_proj(sd["image_proj"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ip_adapter.install_ip_adapter_weights({}, cfg, [sd["ip_adapter"]])
+
+
+def test_convert_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    from diffusionspatialcontrol_tpu_torch.convert import cache, hf
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = tiny_config()
+    sd = hf.StateDict({})
+    for call in (lambda: hf.load_pipeline_params(str(tmp_path), cfg),
+                 lambda: hf.convert_unet(sd, cfg.unet),
+                 lambda: hf.convert_clip(sd, cfg.clip),
+                 lambda: cache.load_params(str(tmp_path / "x"))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

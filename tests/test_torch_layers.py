@@ -21,6 +21,7 @@ from diffusionspatialcontrol_tpu_torch.convert.from_jax import params_from_jax
 from diffusionspatialcontrol_tpu_torch.models import clip as tclip
 from diffusionspatialcontrol_tpu_torch.models import layers as tl
 from diffusionspatialcontrol_tpu_torch.models import vae as tvae
+from tests.test_torch_controlnet import to_jax
 
 # One intra-op thread per xdist worker: the workers share the CPU's cores.
 torch.set_num_threads(1)
@@ -32,18 +33,26 @@ def _np_tree(tree):
 
 @pytest.fixture(scope="module")
 def tiny_params():
-    """CLIP and VAE parameters from the JAX package's own init functions
-    (the ones ``factory.init_pipeline_params`` calls; the UNet's are built in
-    tests/test_torch_unet.py), in fp32, converted for the port."""
-    cfg = jcfg.tiny_config()
-    k1, k2 = jax.random.split(jax.random.PRNGKey(0))
-    jp = {"clip": jclip.clip_init(k1, cfg.clip, jnp.float32),
-          "vae": jvae.vae_init(k2, cfg.vae, jnp.float32)}
+    """CLIP and VAE parameters from the port's init (the JAX init's trees
+    and bounds: tests/test_torch_pipeline.py), in fp32, moved to the JAX
+    package's layouts and converted back for the port. The JAX package's
+    own inits compile each of their random ops (~15 s of a worker)."""
+    cfg = tcfg.tiny_config()
+    g = torch.Generator().manual_seed(0)
+    jp = to_jax({"clip": tclip.clip_init(g, cfg.clip, torch.float32, "cpu"),
+                 "vae": tvae.vae_init(g, cfg.vae, torch.float32, "cpu")})
     return jp, params_from_jax(_np_tree(jp), device="cpu")
 
 
 def _t(a):
     return torch.from_numpy(np.array(a))
+
+
+# the JAX references jitted: one compile a program, not one an op (a
+# quarter of the eager compile time)
+_jax_clip = jax.jit(jclip.clip_apply, static_argnums=(1,),
+                    static_argnames=("clip_skip",))
+_jax_decode = jax.jit(jvae.vae_decode, static_argnums=(1,))
 
 
 def test_linear_matches_jax():
@@ -119,8 +128,8 @@ def test_clip_apply_matches_jax(tiny_params):
     cfg = jcfg.tiny_config().clip
     ids = np.random.default_rng(5).integers(0, 49408, (2, 77))
     for clip_skip in (1, 2):
-        want = np.asarray(jclip.clip_apply(jp["clip"], cfg, jnp.asarray(ids),
-                                           clip_skip=clip_skip))
+        want = np.asarray(_jax_clip(jp["clip"], cfg, jnp.asarray(ids),
+                                    clip_skip=clip_skip))
         got = tclip.clip_apply(tp["clip"], tcfg.tiny_config().clip,
                                torch.from_numpy(ids), clip_skip=clip_skip)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
@@ -130,8 +139,8 @@ def test_vae_decode_matches_jax(tiny_params):
     jp, tp = tiny_params
     lat = np.random.default_rng(6).standard_normal((1, 8, 8, 4)).astype(
         np.float32)
-    want = np.asarray(jvae.vae_decode(jp["vae"], jcfg.tiny_config().vae,
-                                      jnp.asarray(lat)))
+    want = np.asarray(_jax_decode(jp["vae"], jcfg.tiny_config().vae,
+                                  jnp.asarray(lat)))
     got = tvae.vae_decode(tp["vae"], tcfg.tiny_config().vae,
                           torch.from_numpy(lat))
     assert got.shape == (1, 64, 64, 3) and got.dtype == torch.float32

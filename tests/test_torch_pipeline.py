@@ -42,6 +42,7 @@ from diffusionspatialcontrol_tpu_torch.pipeline.pipeline import (
 from diffusionspatialcontrol_tpu_torch.samplers import schedules as tsched
 from diffusionspatialcontrol_tpu_torch.samplers import solvers as tsolvers
 from diffusionspatialcontrol_tpu_torch.text import tokenizer as ttok
+from tests.test_torch_controlnet import to_jax
 
 # One intra-op thread per xdist worker: the workers share the CPU's cores.
 torch.set_num_threads(1)
@@ -61,10 +62,25 @@ def _two_masks(h, w):
 
 @pytest.fixture(scope="module")
 def params():
-    jp = jfactory.init_pipeline_params(jax.random.PRNGKey(0),
-                                       jcfg.tiny_config(), jnp.float32)
-    return jp, params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
-                               device="cpu")
+    """The tiny pipeline's weights in both packages' layouts, from the
+    port's init (seed 0; the JAX init's tree, shapes and bounds, which
+    ``test_init_pipeline_params_matches_converted_tree`` holds it to). The
+    JAX package's own init compiles each of its random ops: ~40 s of a
+    worker."""
+    tp = tfactory.init_pipeline_params(0, tcfg.tiny_config(), torch.float32,
+                                       device="cpu")
+    return to_jax(tp), tp
+
+
+@pytest.fixture(scope="module")
+def jax_init_tree():
+    """The tree of the JAX package's ``init_pipeline_params`` at the tiny
+    config with zeros for values (its shapes by ``jax.eval_shape``, which
+    compiles nothing)."""
+    shapes = jax.eval_shape(lambda: jfactory.init_pipeline_params(
+        jax.random.PRNGKey(0), jcfg.tiny_config(), jnp.float32))
+    return jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
+                                  shapes)
 
 
 @pytest.mark.parametrize("text", [
@@ -142,8 +158,9 @@ def test_sample_dpmpp_2m_matches_jax_on_toy_denoiser():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-def test_params_from_jax_keeps_tree_and_shapes(params):
-    jp, tp = params
+def test_params_from_jax_keeps_tree_and_shapes(jax_init_tree):
+    jp = jax_init_tree
+    tp = params_from_jax(jp, device="cpu")
     jleaves = jax.tree_util.tree_leaves_with_path(jp)
     assert len(jleaves) > 300
     for path, leaf in jleaves:
@@ -159,10 +176,10 @@ def test_params_from_jax_keeps_tree_and_shapes(params):
         assert tuple(node.shape) == shape, jax.tree_util.keystr(path)
 
 
-def test_init_pipeline_params_matches_converted_tree(params):
+def test_init_pipeline_params_matches_converted_tree(jax_init_tree):
     """The port's own random init has the converted tree's structure,
     shapes and dtype, the JAX init's bounds, and finite values."""
-    _, conv = params
+    conv = params_from_jax(jax_init_tree, device="cpu")
     own = tfactory.init_pipeline_params(0, tcfg.tiny_config(), torch.float32,
                                         device="cpu")
 

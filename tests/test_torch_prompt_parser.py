@@ -13,17 +13,18 @@ import pytest
 import torch
 
 from diffusionspatialcontrol_tpu import config as jcfg
-from diffusionspatialcontrol_tpu.models import clip as jclip
 from diffusionspatialcontrol_tpu.ops import region_map as jregion
 from diffusionspatialcontrol_tpu.text import encoder as jencoder
 from diffusionspatialcontrol_tpu.text import prompt_parser as jpp
 from diffusionspatialcontrol_tpu.text import tokenizer as jtok
 from diffusionspatialcontrol_tpu_torch import config as tcfg
 from diffusionspatialcontrol_tpu_torch.convert.from_jax import params_from_jax
+from diffusionspatialcontrol_tpu_torch.models import clip as tclip
 from diffusionspatialcontrol_tpu_torch.ops import region_map as tregion
 from diffusionspatialcontrol_tpu_torch.text import encoder as tencoder
 from diffusionspatialcontrol_tpu_torch.text import prompt_parser as tpp
 from diffusionspatialcontrol_tpu_torch.text import tokenizer as ttok
+from tests.test_torch_controlnet import to_jax
 
 # One intra-op thread per xdist worker: the workers share the CPU's cores.
 torch.set_num_threads(1)
@@ -73,12 +74,15 @@ def test_tokenize_line_matches_jax(key):
 
 @pytest.fixture(scope="module")
 def clip():
-    """The JAX init's tiny CLIP with a random final LayerNorm bias, shared
-    by both packages. The init's zero bias gives every output row a mean of
-    0 up to rounding, and both modes divide by such means; trained weights
-    have a nonzero bias (the modes were written for them)."""
+    """The port's tiny CLIP init (the JAX init's tree and bounds) with a
+    random final LayerNorm bias, shared by both packages. The init's zero
+    bias gives every output row a mean of 0 up to rounding, and both modes
+    divide by such means; trained weights have a nonzero bias (the modes
+    were written for them)."""
     cfg = jcfg.tiny_config().clip
-    jp = jclip.clip_init(jax.random.PRNGKey(3), cfg, jnp.float32)
+    jp = to_jax(tclip.clip_init(torch.Generator().manual_seed(3),
+                                tcfg.tiny_config().clip, torch.float32,
+                                "cpu"))
     bias = np.random.default_rng(3).standard_normal(cfg.hidden_size)
     jp["final_layer_norm"]["bias"] = jnp.asarray(0.5 * bias, jnp.float32)
     tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp),

@@ -21,6 +21,7 @@ from diffusionspatialcontrol_tpu_torch.convert.from_jax import params_from_jax
 from diffusionspatialcontrol_tpu_torch.models import unet as tunet
 from diffusionspatialcontrol_tpu_torch.ops.kernels import flash_attention as k2
 from diffusionspatialcontrol_tpu_torch.ops.kernels import region_attention as k1
+from tests.test_torch_controlnet import to_jax
 
 # One intra-op thread per xdist worker: the workers share the CPU's cores.
 torch.set_num_threads(1)
@@ -28,8 +29,13 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def unet_params():
-    jp = junet.unet_init(jax.random.PRNGKey(0), jcfg.tiny_config().unet,
-                         jnp.float32)
+    """The tiny UNet's weights in both packages' layouts, from the port's
+    init (the JAX init's tree and bounds: tests/test_torch_pipeline.py);
+    the JAX package's own init compiles each of its random ops (~20 s of a
+    worker)."""
+    tp = tunet.unet_init(torch.Generator().manual_seed(0),
+                         tcfg.tiny_config().unet, torch.float32, "cpu")
+    jp = to_jax(tp)
     return jp, params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
                                device="cpu")
 
