@@ -6,7 +6,8 @@ device; ``inference()`` takes the app's whole parameter surface (prompt and
 negative, model, sampler name of the app's table, steps, CFG, size, seeds,
 region-map state, img2img / inpaint, hires fix, clip-skip, prompt mode,
 latent previews, the timeout watchdog, chunked and cancellable runs,
-multi-prompt grids, ControlNet, T2I-Adapter and IP-Adapter units) and
+multi-prompt grids, ControlNet, T2I-Adapter and IP-Adapter units, the
+opt-in speed modes cfg-tail, DeepCache, bottleneck sampling and TGATE) and
 routes it to
 ``StableDiffusionTorch`` as the JAX package routes it to
 ``StableDiffusionTPU``, with every check in the same order, so that a
@@ -25,8 +26,7 @@ CLIP-vision tower and the face networks (when registered without a path)
 random weights from the port's generator.
 
 Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item where the JAX package would first use them: the speed modes
-cfg-tail, DeepCache, bottleneck and TGATE (item 18) and the control
+ROADMAP item where the JAX package would first use them: the control
 preprocessors (item 20).
 """
 
@@ -482,7 +482,7 @@ def inference(
     # pass's per-step decodes to return with hires on; True = "both"
     timeout: float = registry.INFERENCE_TIMEOUT_S,
     cancel_check_steps: Optional[int] = None,
-    # the speed modes (ROADMAP item 18)
+    # the opt-in speed modes (no reference counterpart; one at a time)
     cfg_tail_frac: float = 0.0,
     deepcache_interval: int = 0,
     bottleneck_low_scale: float = 0.0,
@@ -879,7 +879,14 @@ def inference(
                     "bottleneck_low_scale does not combine with "
                     "cfg_tail_frac or deepcache_interval"
                 )
-            raise _not_ported("bottleneck sampling (ROADMAP item 18)")
+            rs = None
+            if region_state:
+                rs = ([region_state], ids, num_images_per_prompt)
+            out = pipe.txt2img_bottleneck(
+                context, gen, low_scale=bottleneck_low_scale, seed=seed,
+                region_biases=None, region_state=rs, batch_size=batch,
+                extras=extras, uint8_output=True,
+            )
         elif deepcache_interval and deepcache_interval > 1:
             if hires is not None or latent_preview:
                 raise ValueError(
@@ -890,21 +897,33 @@ def inference(
                 raise ValueError(
                     "deepcache_interval does not combine with cfg_tail_frac"
                 )
-            raise _not_ported("DeepCache (ROADMAP item 18)")
+            out = pipe.txt2img_deepcache(
+                context, gen, deepcache_interval, seed=seed,
+                region_biases=region_biases, batch_size=batch,
+                extras=extras, uint8_output=True,
+            )
         elif turbo_modes["tgate_gate_frac"]:
             if hires is not None or latent_preview:
                 raise ValueError(
                     "tgate_gate_frac does not combine with hires or "
                     "latent_preview"
                 )
-            raise _not_ported("TGATE (ROADMAP item 18)")
+            out = pipe.txt2img_tgate(
+                context, gen, tgate_gate_frac, seed=seed,
+                region_biases=region_biases, batch_size=batch,
+                extras=extras, uint8_output=True,
+            )
         elif cfg_tail_frac and cfg_tail_frac > 0.0:
             if hires is not None or latent_preview:
                 raise ValueError(
                     "cfg_tail_frac does not combine with hires or "
                     "latent_preview"
                 )
-            raise _not_ported("cfg-tail sampling (ROADMAP item 18)")
+            out = pipe.txt2img_cfg_tail(
+                context, gen, cfg_tail_frac, seed=seed,
+                region_biases=region_biases, batch_size=batch,
+                extras=extras, uint8_output=True,
+            )
         else:
             out = pipe.txt2img(
                 context, gen, seed=seed, region_biases=region_biases,

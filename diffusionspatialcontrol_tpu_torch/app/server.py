@@ -20,9 +20,12 @@ A stdlib HTTP server exposing ``app.api.inference`` as JSON endpoints:
   GET  /samplers   — sampler names of the app's table
   GET  /health
 
-``/preprocessors`` and ``/preprocess`` answer 501 until the control
-preprocessors are ported (ROADMAP item 20), as does a ControlNet or
-T2I-Adapter unit that names a ``preprocessor``. One worker thread owns the
+Every field of the JAX server's ``/generate`` runs here, the speed modes
+(``cfg_tail_frac``, ``deepcache_interval``, ``bottleneck_low_scale``,
+``tgate_gate_frac``) included, but for the control preprocessors and the
+Gradio UI (ROADMAP item 20): ``/preprocessors`` and ``/preprocess`` answer
+501 until they are ported, as does a ControlNet or T2I-Adapter unit that
+names a ``preprocessor``. One worker thread owns the
 device: ``/generate``, ``/warmup`` and the job queue share one lock, so
 requests run one at a time in arrival order. A request that fails answers
 an error (400 for a caller's mistake, 501 for a path not ported yet, 500

@@ -22,8 +22,11 @@ added where the JAX package adds them, and IP-Adapter's decoupled
 cross-attention where a cross-attention carries ``"ip"`` weights
 (``UNetCond``; ``models/ip_adapter.py`` installs them).
 
-Not ported yet (passing them raises): FreeU, heatmaps, TGATE caching and
-DeepCache.
+The opt-in taps of the JAX package run here too: FreeU at the first two up
+blocks, DAAM heatmaps (the cross-attentions' probabilities), TGATE's
+collect / frozen cross-attention outputs, and DeepCache's deep/shallow split
+(``unet_apply_deepcache``). The JAX package's ``axis_name`` (multi-device)
+keyword is not ported (ROADMAP item 22).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import UNetConfig
+from ..ops.attention import attention_probs
 from ..ops.kernels.flash_attention import flash_attention_nlhd
 from ..ops.kernels.region_attention import region_attention_nlhd
 from ..ops.resize import resize
@@ -287,7 +291,8 @@ def _self_attention(p, x, heads, flash_opts):
     return linear(p["to_out"], _heads_merge(out))
 
 
-def _cross_attention(p, x, cond: UNetCond, level: int, heads, flash_opts):
+def _cross_attention(p, x, cond: UNetCond, level: int, heads, flash_opts,
+                     heatmaps: Optional[list] = None):
     q = _heads_split(linear(p["to_q"], x), heads)
     k = _heads_split(linear(p["to_k"], cond.context), heads)
     v = _heads_split(linear(p["to_v"], cond.context), heads)
@@ -296,6 +301,13 @@ def _cross_attention(p, x, cond: UNetCond, level: int, heads, flash_opts):
                                     cond.region.sigma)
     else:
         out = flash_attention_nlhd(q, k, v, **flash_opts)
+    if heatmaps is not None:
+        region = cond.region
+        probs = attention_probs(
+            q.transpose(1, 2), k.transpose(1, 2),
+            None if region is None else region.biases[level],
+            None if region is None else region.sigma)
+        heatmaps.append((level, probs.sum(dim=1)))  # (B, L, S)
     out_h = _heads_merge(out)
     # IP-Adapter's decoupled attention: the queries attend to each
     # adapter's image tokens on their own, the result gated by the
@@ -345,8 +357,25 @@ def _geglu_ff(p, x):
     return linear(p["proj_out"], val * F.gelu(gate, approximate="none"))
 
 
+@dataclasses.dataclass(frozen=True)
+class _Taps:
+    """What one UNet call reads from or feeds to its cross-attentions:
+    ``heatmaps`` collects (level, (B, L, S) probabilities summed over heads)
+    a cross-attention; ``cache`` holds TGATE's frozen outputs, one a
+    cross-attention in traversal order, consumed in that order in place of
+    the cross-attention (its layer norm included); ``out`` collects every
+    cross-attention's output in that order."""
+
+    heatmaps: Optional[list] = None
+    cache: Optional[list] = None
+    out: Optional[list] = None
+
+
+_NO_TAPS = _Taps()
+
+
 def _transformer_apply(p, cfg: UNetConfig, x, cond: UNetCond, level: int,
-                       heads, flash_opts):
+                       heads, flash_opts, taps: _Taps = _NO_TAPS):
     b, hh, ww, c = x.shape
     residual = x
     h = group_norm(p["norm"], x, cfg.norm_num_groups, 1e-6)
@@ -358,8 +387,14 @@ def _transformer_apply(p, cfg: UNetConfig, x, cond: UNetCond, level: int,
     for bp in p["blocks"]:
         h = h + _self_attention(bp["attn1"], layer_norm(bp["norm1"], h),
                                 heads, flash_opts)
-        xo = _cross_attention(bp["attn2"], layer_norm(bp["norm2"], h), cond,
-                              level, heads, flash_opts)
+        if taps.cache is not None:
+            xo = taps.cache.pop(0)
+        else:
+            xo = _cross_attention(bp["attn2"], layer_norm(bp["norm2"], h),
+                                  cond, level, heads, flash_opts,
+                                  taps.heatmaps)
+        if taps.out is not None:
+            taps.out.append(xo)
         h = h + xo.to(h.dtype)
         h = h + _geglu_ff(bp["ff"], layer_norm(bp["norm3"], h))
 
@@ -370,10 +405,134 @@ def _transformer_apply(p, cfg: UNetConfig, x, cond: UNetCond, level: int,
     return h + residual
 
 
+@dataclasses.dataclass(frozen=True)
+class FreeUParams:
+    """FreeU's backbone (b) and skip (s) scales at the first two up blocks
+    (diffusers' ``enable_freeu``); SD1.5's recommended values."""
+
+    b1: float = 1.5
+    b2: float = 1.6
+    s1: float = 0.9
+    s2: float = 0.2
+
+
+def _freeu_filter(skip: torch.Tensor, scale: float,
+                  threshold: int = 1) -> torch.Tensor:
+    """FreeU's Fourier gate on skip features: an fp32 FFT over H and W
+    (cuFFT on the card), the low-frequency box of half-width ``threshold``
+    around the shifted centre (h // 2, w // 2) scaled by ``scale``, then
+    back; the real part in the skip's dtype."""
+    h, w = skip.shape[1:3]
+    xf = torch.fft.fftshift(torch.fft.fftn(skip.float(), dim=(1, 2)),
+                            dim=(1, 2))
+    rows = (torch.arange(h, device=skip.device) - h // 2).abs() <= threshold
+    cols = (torch.arange(w, device=skip.device) - w // 2).abs() <= threshold
+    box = (rows[:, None] & cols[None, :])[None, :, :, None]
+    xf = torch.where(box, xf * scale, xf)
+    xf = torch.fft.ifftshift(xf, dim=(1, 2))
+    return torch.fft.ifftn(xf, dim=(1, 2)).real.to(skip.dtype)
+
+
+def _freeu_scales(freeu: Optional[FreeUParams], i: int):
+    """(b, s) of up block ``i``, or None where FreeU does not act."""
+    if freeu is None or i not in (0, 1):
+        return None
+    return (freeu.b1, freeu.s1) if i == 0 else (freeu.b2, freeu.s2)
+
+
+class _Run:
+    """The state one UNet call threads through its blocks: the weights and
+    options, the time projections in the order the resnets run, the skip
+    stack and the taps."""
+
+    def __init__(self, cfg, cond, resnets, temb, conv_impl, flash_opts,
+                 taps=_NO_TAPS):
+        self.cfg, self.cond, self.taps = cfg, cond, taps
+        self.conv_impl, self.flash_opts = conv_impl, flash_opts
+        self.t_it = iter(_temb_projections(resnets, temb))
+        self.skips: List[torch.Tensor] = []
+
+    def resnet(self, p, h):
+        return _resnet_apply(p, h, self.cfg.norm_num_groups,
+                             self.cfg.norm_eps, next(self.t_it),
+                             self.conv_impl)
+
+    def transformer(self, p, h, level):
+        return _transformer_apply(p, self.cfg, h, self.cond, level,
+                                  self.cfg.heads_at(level), self.flash_opts,
+                                  self.taps)
+
+    def down_block(self, block, h, level, t2i=None, downsample=True):
+        """A down block's layers, each output pushed on the skip stack; the
+        block's T2I residual after its last layer, then its downsample."""
+        n_res = len(block["resnets"])
+        for j in range(n_res):
+            h = self.resnet(block["resnets"][j], h)
+            if block["attentions"]:
+                h = self.transformer(block["attentions"][j], h, level)
+            if j == n_res - 1 and t2i:
+                h = h + t2i.pop(0).to(h.dtype)
+            self.skips.append(h)
+        if downsample and "downsample" in block:
+            h = conv2d(block["downsample"], h, stride=2)
+            self.skips.append(h)
+        return h
+
+    def mid_block(self, mid, h):
+        top = self.cfg.num_levels - 1
+        h = self.resnet(mid["resnet1"], h)
+        h = self.transformer(mid["attention"], h, top)
+        return self.resnet(mid["resnet2"], h)
+
+    def up_block(self, block, h, level, freeu_scales=None):
+        """An up block: each layer takes a skip from the stack (with FreeU,
+        the first half of h's channels scaled by b and the skip filtered at
+        s), then the upsample."""
+        for j in range(len(block["resnets"])):
+            skip = self.skips.pop()
+            if freeu_scales is not None:
+                b_scale, s_scale = freeu_scales
+                c_half = h.shape[-1] // 2
+                h = torch.cat([h[..., :c_half] * b_scale, h[..., c_half:]],
+                              dim=-1)
+                skip = _freeu_filter(skip, s_scale)
+            h = self.resnet(block["resnets"][j], torch.cat([h, skip], dim=-1))
+            if block["attentions"]:
+                h = self.transformer(block["attentions"][j], h, level)
+        if "upsample" in block:
+            h = conv2d(block["upsample"], upsample_nearest2x(h))
+        return h
+
+
+def _time_embedding(params, cfg: UNetConfig, sample, timesteps):
+    temb = timestep_embedding(timesteps, cfg.block_out_channels[0],
+                              cfg.flip_sin_to_cos, cfg.freq_shift)
+    temb = linear(params["time_embedding"]["linear_1"],
+                  temb.to(sample.dtype))
+    return linear(params["time_embedding"]["linear_2"], silu(temb))
+
+
+def _conv_out(params, cfg: UNetConfig, h):
+    h = silu(group_norm(params["conv_norm_out"], h, cfg.norm_num_groups,
+                        cfg.norm_eps))
+    return conv2d(params["conv_out"], h)
+
+
+def _all_resnets(params):
+    """Every resnet in traversal order: down, mid, up."""
+    out = [r for blk in params["down_blocks"] for r in blk["resnets"]]
+    out += [params["mid_block"]["resnet1"], params["mid_block"]["resnet2"]]
+    return out + [r for blk in params["up_blocks"] for r in blk["resnets"]]
+
+
 def unet_apply(params: Dict[str, Any], cfg: UNetConfig,
                sample: torch.Tensor, timesteps: torch.Tensor,
                cond: UNetCond, attn_impl: str = "pallas",
-               conv_impl: Optional[str] = None, **unsupported):
+               freeu: Optional[FreeUParams] = None,
+               collect_heatmaps: bool = False,
+               conv_impl: Optional[str] = None,
+               xattn_cache: Optional[Tuple[torch.Tensor, ...]] = None,
+               collect_xattn: bool = False):
     """UNet forward: sample (B, H, W, C) NHWC, timesteps (B,) possibly
     fractional. Returns the eps / v prediction (B, H, W, out_channels).
 
@@ -382,71 +541,109 @@ def unet_apply(params: Dict[str, Any], cfg: UNetConfig,
     residuals to every skip after the down path and after the mid block's
     second resnet, each cast to the activations' dtype at the add. Its
     IP-Adapter tokens go to every cross-attention that carries ``"ip"``
-    weights, one decoupled attention (K2) a adapter."""
-    if unsupported and any(v not in (None, False)
-                           for v in unsupported.values()):
-        raise NotImplementedError(
-            f"not ported yet: {sorted(unsupported)} (FreeU, DeepCache, "
-            f"TGATE and heatmaps: ROADMAP items 18 and 19)")
-    conv_impl = check_conv_impl(conv_impl)
-    flash_opts = flash_options(attn_impl)
-    groups, eps_ = cfg.norm_num_groups, cfg.norm_eps
+    weights, one decoupled attention (K2) a adapter.
 
-    temb = timestep_embedding(timesteps, cfg.block_out_channels[0],
-                              cfg.flip_sin_to_cos, cfg.freq_shift)
-    temb = linear(params["time_embedding"]["linear_1"],
-                  temb.to(sample.dtype))
-    temb = linear(params["time_embedding"]["linear_2"], silu(temb))
-
-    res_order = [r for blk in params["down_blocks"] for r in blk["resnets"]]
-    res_order += [params["mid_block"]["resnet1"],
-                  params["mid_block"]["resnet2"]]
-    res_order += [r for blk in params["up_blocks"] for r in blk["resnets"]]
-    t_it = iter(_temb_projections(res_order, temb))
+    ``freeu``: FreeU at up blocks 0 and 1 (``_freeu_filter``).
+    ``collect_heatmaps``: also return a list of (level, (B, L, S)) softmax
+    probabilities of every cross-attention summed over heads
+    (``ops.attention.attention_probs``, plain torch; the attention output
+    itself still comes from K1/K2), for DAAM. TGATE: ``collect_xattn``
+    returns ``(out, outputs)``, the output of every cross-attention call in
+    traversal order; ``xattn_cache`` (such a tuple) takes their place and
+    skips every cross-attention, its layer norm included, and must hold
+    exactly one entry a cross-attention. The three exclude each other."""
+    if collect_xattn and (xattn_cache is not None or collect_heatmaps):
+        raise ValueError("collect_xattn is exclusive with xattn_cache / "
+                         "collect_heatmaps")
+    if xattn_cache is not None and collect_heatmaps:
+        raise ValueError("heatmap introspection needs live cross-attention "
+                         "(xattn_cache skips it)")
+    taps = _Taps(heatmaps=[] if collect_heatmaps else None,
+                 cache=None if xattn_cache is None else list(xattn_cache),
+                 out=[] if collect_xattn else None)
+    run = _Run(cfg, cond, _all_resnets(params),
+               _time_embedding(params, cfg, sample, timesteps),
+               check_conv_impl(conv_impl), flash_options(attn_impl), taps)
 
     h = conv2d(params["conv_in"], sample)
-    skips = [h]
+    run.skips.append(h)
     t2i = list(cond.t2i_residuals or ())
     for level, block in enumerate(params["down_blocks"]):
-        n_res = len(block["resnets"])
-        for j in range(n_res):
-            h = _resnet_apply(block["resnets"][j], h, groups, eps_,
-                              next(t_it), conv_impl)
-            if block["attentions"]:
-                h = _transformer_apply(block["attentions"][j], cfg, h, cond,
-                                       level, cfg.heads_at(level), flash_opts)
-            if j == n_res - 1 and t2i:
-                h = h + t2i.pop(0).to(h.dtype)
-            skips.append(h)
-        if "downsample" in block:
-            h = conv2d(block["downsample"], h, stride=2)
-            skips.append(h)
+        h = run.down_block(block, h, level, t2i)
     if cond.controlnet_down is not None:
-        skips = [s + r.to(s.dtype)
-                 for s, r in zip(skips, cond.controlnet_down)]
-
-    mid = params["mid_block"]
-    top = cfg.num_levels - 1
-    h = _resnet_apply(mid["resnet1"], h, groups, eps_, next(t_it),
-                      conv_impl)
-    h = _transformer_apply(mid["attention"], cfg, h, cond, top,
-                           cfg.heads_at(top), flash_opts)
-    h = _resnet_apply(mid["resnet2"], h, groups, eps_, next(t_it),
-                      conv_impl)
+        run.skips = [s + r.to(s.dtype)
+                     for s, r in zip(run.skips, cond.controlnet_down)]
+    h = run.mid_block(params["mid_block"], h)
     if cond.controlnet_mid is not None:
         h = h + cond.controlnet_mid.to(h.dtype)
-
     for i, block in enumerate(params["up_blocks"]):
-        level = cfg.num_levels - 1 - i
-        for j in range(len(block["resnets"])):
-            h = torch.cat([h, skips.pop()], dim=-1)
-            h = _resnet_apply(block["resnets"][j], h, groups, eps_,
-                              next(t_it), conv_impl)
-            if block["attentions"]:
-                h = _transformer_apply(block["attentions"][j], cfg, h, cond,
-                                       level, cfg.heads_at(level), flash_opts)
-        if "upsample" in block:
-            h = conv2d(block["upsample"], upsample_nearest2x(h))
+        h = run.up_block(block, h, cfg.num_levels - 1 - i,
+                         _freeu_scales(freeu, i))
+    out = _conv_out(params, cfg, h)
+    if taps.cache:
+        raise ValueError(
+            f"xattn_cache has {len(taps.cache)} unconsumed entries — it "
+            f"must hold exactly one output per cross-attention call")
+    if collect_xattn:
+        return out, tuple(taps.out)
+    if collect_heatmaps:
+        return out, taps.heatmaps
+    return out
 
-    h = silu(group_norm(params["conv_norm_out"], h, groups, eps_))
-    return conv2d(params["conv_out"], h)
+
+def deepcache_shape(cfg: UNetConfig, batch: int, lat_h: int,
+                    lat_w: int) -> Tuple[int, int, int, int]:
+    """Shape of the deep-feature cache: the next-to-last up block's output
+    (back at full latent resolution, level-1 channel width)."""
+    return (batch, lat_h, lat_w, cfg.block_out_channels[1])
+
+
+def unet_apply_deepcache(params: Dict[str, Any], cfg: UNetConfig,
+                         sample: torch.Tensor, timesteps: torch.Tensor,
+                         cond: UNetCond, cache: torch.Tensor, use_cache,
+                         attn_impl: str = "pallas",
+                         freeu: Optional[FreeUParams] = None,
+                         conv_impl: Optional[str] = None):
+    """UNet forward with DeepCache's deep/shallow split. Returns
+    ``(out, new_cache)``.
+
+    The deep branch is down blocks 1.., the mid block and every up block
+    but the last; the shallow layers (conv_in, down block 0, the last up
+    block, conv_out) run every call. ``use_cache``: a host-side number
+    from the static caching schedule (the JAX package's traced flag of
+    ``lax.cond``); above 0.5 the deep branch is skipped and its output is
+    ``cache``, which is returned as it is; else the deep branch runs (FreeU
+    inside it) and its output is the new cache (``deepcache_shape``). The
+    skips keep ``unet_apply``'s bookkeeping, and a full call runs the same
+    operations in the same order as ``unet_apply``, so it equals it. The
+    time projections are one GEMM over the resnets the call runs.
+    ControlNet and T2I residuals inject into the deep branch and are
+    rejected."""
+    if cond.controlnet_down is not None or cond.t2i_residuals is not None:
+        raise ValueError(
+            "deepcache does not support ControlNet/T2I-Adapter residuals "
+            "(they inject into the cached deep branch)")
+    reuse = float(use_cache) > 0.5
+    down, up = params["down_blocks"], params["up_blocks"]
+    resnets = (down[0]["resnets"] + up[-1]["resnets"] if reuse
+               else _all_resnets(params))
+    run = _Run(cfg, cond, resnets,
+               _time_embedding(params, cfg, sample, timesteps),
+               check_conv_impl(conv_impl), flash_options(attn_impl))
+
+    h = conv2d(params["conv_in"], sample)
+    run.skips.append(h)
+    h = run.down_block(down[0], h, 0, downsample=not reuse)
+    if reuse:
+        h = cache
+    else:
+        for level in range(1, cfg.num_levels):
+            h = run.down_block(down[level], h, level)
+        h = run.mid_block(params["mid_block"], h)
+        for i, block in enumerate(up[:-1]):
+            h = run.up_block(block, h, cfg.num_levels - 1 - i,
+                             _freeu_scales(freeu, i))
+        cache = h
+    h = run.up_block(up[-1], h, 0)
+    assert not run.skips
+    return _conv_out(params, cfg, h), cache

@@ -12,8 +12,10 @@ The mechanism:
 (B, L, S) and is broadcast across heads. Softmax is float32.
 
 Everything here is plain PyTorch: the materialized oracles the tests hold
-the kernels to, and the centered-Gram std with the bias it scales (plain
-reductions in the JAX package too). The BTNH entry points the UNet calls,
+the kernels to, the centered-Gram std with the bias it scales (plain
+reductions in the JAX package too), and ``attention_probs``, the softmax
+probabilities the heatmap taps of ``models/unet.py`` read (a plain XLA op in
+the JAX package). The BTNH entry points the UNet calls,
 ``flash_attention_nlhd`` and ``region_attention_nlhd``, live with their
 kernels in ``ops/kernels``. The ``axis_name`` (multi-device) branch of the
 JAX package is not ported yet.
@@ -109,3 +111,16 @@ def region_attention_reference(q, k, v, region_state, sigma,
     out = torch.einsum("bhls,bhsd->bhld", probs.to(v.dtype).float(),
                        v.float())
     return out.to(q.dtype)
+
+
+def attention_probs(q, k, region_state=None, sigma=None) -> torch.Tensor:
+    """Softmax attention probabilities (B, H, L, S), fp32, for the DAAM
+    heatmaps. q: (B, H, L, D); k: (B, H, S, D). With ``region_state`` the
+    logits take the region term, its std the exact unbiased std of the full
+    logits (``_std_unbiased``, as the JAX package's), not the Gram form."""
+    logits = (torch.einsum("bhld,bhsd->bhls", q.float(), k.float())
+              * q.shape[-1] ** -0.5)
+    if region_state is not None:
+        std = _std_unbiased(logits)
+        logits = logits + region_bias(region_state, sigma, std)[:, None]
+    return torch.softmax(logits, dim=-1)

@@ -15,8 +15,13 @@ T2I-Adapter and IP-Adapter units (``build_controlnet_extras``,
 sampling method); hires fix (latent upscale, then
 img2img on the latents at the target size, optionally with another sampler
 and schedule, the units' inputs rebuilt at that size); per-step latent
-history; and ``sample_chunked``, which returns to the caller between chunks
-of steps to report progress, cancel or pause.
+history; ``sample_chunked``, which returns to the caller between chunks
+of steps to report progress, cancel or pause; and the opt-in speed modes,
+which have no reference counterpart: ``txt2img_cfg_tail`` (the last steps
+without the uncond half), ``txt2img_tgate`` (cross-attention frozen after a
+gate step), ``txt2img_deepcache`` (the UNet's deep branch reused between
+full steps) and ``txt2img_bottleneck`` (the middle steps at a lower
+resolution).
 
 Math parity notes (as in the JAX package):
   * initial latents are scaled by (sigma_0^2 + 1)^0.5;
@@ -29,13 +34,16 @@ Randomness: each sample draws from its own CPU ``torch.Generator``
 (``samplers.brownian``), in a fixed order: txt2img its initial latents,
 img2img its noise, then the solver noise; ``encode_image`` its posterior
 draw; inpaint the posterior draw, the initial latents, the blend noise
-(4-channel UNets only), then the solver noise. So a sample's result depends
-only on its seed, not on the batch it rides in, on the device or on whether
-latents were passed. The streams differ from JAX's threefry streams; tests
-pass ``latents=`` and patch ``initial_noise``, ``seeded_normals`` and
-``_solver_noise`` to compare the two packages.
-
-Not ported yet: the speed modes (ROADMAP item 18).
+(4-channel UNets only), then the solver noise. The speed modes draw as
+txt2img does (cfg-tail, TGATE and DeepCache draw nothing else; TGATE and
+cfg-tail resume the same solver noise after their switch), and bottleneck
+sampling, whose solvers draw no noise, then draws its two boundary noises,
+the low-resolution one first (``bottleneck_draws``). So a sample's result
+depends only on its seed, not on the batch it rides in, on the device or on
+whether latents were passed. The streams differ from JAX's threefry
+streams; tests pass ``latents=`` and patch ``initial_noise``,
+``seeded_normals``, ``bottleneck_draws`` and ``_solver_noise`` to compare the
+two packages.
 """
 
 from __future__ import annotations
@@ -55,7 +63,14 @@ from ..models.controlnet import (
 )
 from ..models.layers import check_conv_impl
 from ..models.t2i_adapter import multi_adapter_apply
-from ..models.unet import RegionState, UNetCond, flash_options, unet_apply
+from ..models.unet import (
+    RegionState,
+    UNetCond,
+    deepcache_shape,
+    flash_options,
+    unet_apply,
+    unet_apply_deepcache,
+)
 from ..models.vae import vae_decode, vae_encode
 from ..ops.resize import resize_latents
 from ..samplers import brownian, schedules, solvers
@@ -141,6 +156,38 @@ class DenoiseExtras:
     extra_channels: Optional[torch.Tensor] = None  # (B_cfg, h, w, 5)
 
 
+def cond_half_conditioning(context: torch.Tensor,
+                           region_biases: Optional[Tuple[torch.Tensor, ...]],
+                           extras: Optional[DenoiseExtras]):
+    """Every CFG-doubled ([uncond..., cond...]) conditioning tensor cut to
+    its cond half, for a segment with guidance off. What is never
+    CFG-doubled (the inpaint mask, latents and noise; guess-mode ControlNet
+    images) passes as it is."""
+    def half(a):
+        return a[a.shape[0] // 2:]
+
+    rb = (None if region_biases is None
+          else tuple(half(b) for b in region_biases))
+    ex = extras
+    if extras is not None:
+        ex = dataclasses.replace(
+            extras,
+            controlnet_images=(
+                extras.controlnet_images
+                if extras.controlnet_images is None or extras.controlnet_guess
+                else [half(i) for i in extras.controlnet_images]),
+            t2i_residuals=(None if extras.t2i_residuals is None
+                           else tuple(half(f) for f in extras.t2i_residuals)),
+            ip_tokens=(None if extras.ip_tokens is None
+                       else tuple(half(t) for t in extras.ip_tokens)),
+            ip_masks=(None if extras.ip_masks is None
+                      else tuple(None if m is None else half(m)
+                                 for m in extras.ip_masks)),
+            extra_channels=(None if extras.extra_channels is None
+                            else half(extras.extra_channels)))
+    return half(context), rb, ex
+
+
 def make_denoise_fn(
     params: Dict[str, Any],
     model_cfg: ModelConfig,
@@ -154,6 +201,8 @@ def make_denoise_fn(
     conv_impl: str = "xla",
     extras: Optional[DenoiseExtras] = None,
     sigma_steps: Optional[np.ndarray] = None,
+    xattn_cache: Optional[Tuple[torch.Tensor, ...]] = None,
+    collect_xattn: bool = False,
 ):
     """The sigma-space denoiser D(x; sigma); sigma is a 0-d fp32 tensor.
 
@@ -179,7 +228,41 @@ def make_denoise_fn(
     ``extras`` (IP-Adapter): the tokens are cast to the compute dtype and,
     with the masks, CFG-interleaved where their batch is the CFG batch; the
     masks stay fp32, downsampled once a request to each attention's
-    sequence length (``UNetCond.ip_mask_cache``)."""
+    sequence length (``UNetCond.ip_mask_cache``).
+
+    TGATE (``models.unet.unet_apply``): with ``collect_xattn`` the denoiser
+    returns ``(denoised, cross-attention outputs)``; ``xattn_cache`` feeds
+    such outputs to every call in place of the cross-attentions, and needs
+    guidance off (the TGATE tail runs cond-only: with a shared frozen
+    cross-attention the CFG halves are identical)."""
+    if xattn_cache is not None and guidance_scale > 1.0:
+        raise ValueError(
+            "xattn_cache requires guidance off (the TGATE tail runs "
+            "cond-only; with a shared frozen cross-attention the CFG "
+            "halves are identical)")
+
+    def unet(model_in, t_b, cond):
+        out = unet_apply(params["unet"], model_cfg.unet, model_in, t_b, cond,
+                         attn_impl=attn_impl, conv_impl=conv_impl,
+                         xattn_cache=xattn_cache, collect_xattn=collect_xattn)
+        return out if collect_xattn else (out, None)
+
+    denoise = _make_denoiser(params, model_cfg, context, region_biases,
+                             log_sigma_table, guidance_scale,
+                             guidance_rescale, attn_impl, compute_dtype,
+                             conv_impl, extras, sigma_steps, unet)
+    if collect_xattn:
+        return denoise
+    return lambda x, sigma: denoise(x, sigma)[0]
+
+
+def _make_denoiser(params, model_cfg: ModelConfig, context, region_biases,
+                   log_sigma_table, guidance_scale, guidance_rescale,
+                   attn_impl, compute_dtype, conv_impl, extras, sigma_steps,
+                   unet):
+    """The body of ``make_denoise_fn``, also DeepCache's denoiser:
+    ``denoise(x, sigma) -> (denoised, aux)``, where
+    ``unet(model_in, t_b, cond) -> (out, aux)`` runs the UNet."""
     do_cfg = guidance_scale > 1.0
     ex = extras or DenoiseExtras()
     dev = log_sigma_table.device
@@ -292,8 +375,8 @@ def make_denoise_fn(
         if t2i is not None:
             active = _at(t2i[1], idx)
             cond.t2i_residuals = tuple(r.float() * active for r in t2i[0])
-        out = unet_apply(params["unet"], model_cfg.unet, model_in, t_b, cond,
-                         attn_impl=attn_impl, conv_impl=conv_impl).float()
+        out, aux = unet(model_in, t_b, cond)
+        out = out.float()
         if model_cfg.prediction_type == "v_prediction":
             c_skip = 1.0 / (sigma ** 2 + 1.0)
             c_out = -sigma / torch.sqrt(sigma ** 2 + 1.0)
@@ -301,13 +384,13 @@ def make_denoise_fn(
         else:
             denoised = x_in - out * sigma
         if not do_cfg:
-            return denoised
+            return denoised, aux
         pair = denoised.reshape((x.shape[0], 2) + tuple(denoised.shape[1:]))
         d_u, d_c = pair[:, 0], pair[:, 1]
         mixed = d_u + guidance_scale * (d_c - d_u)
         if guidance_rescale > 0.0:
             mixed = rescale_noise_cfg(mixed, d_c, guidance_rescale)
-        return mixed
+        return mixed, aux
 
     return denoise
 
@@ -344,6 +427,20 @@ def initial_noise(seeds: Sequence[int], shape: Tuple[int, ...],
     """Standard-normal latents (len(seeds),) + shape, the first draw of each
     sample's generator: txt2img's initial latents and img2img's noise."""
     return seeded_normals(seeds, shape, 1, device)[0]
+
+
+def bottleneck_draws(seeds: Sequence[int], low_shape: Tuple[int, ...],
+                     full_shape: Tuple[int, ...], device: torch.device):
+    """Bottleneck sampling's draws, (len(seeds),) + shape each, in the order
+    of each sample's generator: the initial latents (``full_shape``, as
+    ``initial_noise`` draws them), the low-resolution boundary's noise,
+    then the full-resolution boundary's. Its solvers draw no noise."""
+    draws = ([], [], [])
+    for s in seeds:
+        g = torch.Generator().manual_seed(int(s))
+        for out, shape in zip(draws, (full_shape, low_shape, full_shape)):
+            out.append(torch.randn(shape, generator=g, dtype=torch.float32))
+    return tuple(torch.stack(d).to(device) for d in draws)
 
 
 def _seed_list(seed: SeedT, batch: int) -> List[int]:
@@ -383,6 +480,127 @@ class ChunkedPause:
     carry: Any  # the solver's carry
     pos: int  # steps done
     n_total: int  # steps of the schedule (checked on resume)
+
+
+def _sigma_tensor(sigma: float, device) -> torch.Tensor:
+    """A schedule's sigma as the 0-d fp32 tensor the denoisers take."""
+    return torch.tensor([sigma], dtype=torch.float32).to(device)[0]
+
+
+def _tgate_core(params, latents, context, region_biases, noise, extras, *,
+                model_cfg: ModelConfig, solver_name: str, sigmas: np.ndarray,
+                gate: int, guidance_scale: float, guidance_rescale: float,
+                attn_impl: str, conv_impl: str, solver_opts: dict,
+                log_sigma_table: torch.Tensor, compute_dtype):
+    """TGATE on scaled initial latents: steps [0, gate) with the full
+    conditioning; one forward at sigmas[gate] that collects every
+    cross-attention output (with CFG, each pair averaged in the compute
+    dtype); then the rest of the steps cond-only, resuming the same solver
+    carry and noise, with the frozen outputs in place of every
+    cross-attention (the region biases and IP tokens are dropped: nothing
+    reads them past the gate; ControlNet and T2I residuals stay live).
+    Returns the final latents."""
+    n_total = len(sigmas) - 1
+    solver_fn = solvers.SOLVERS[solver_name][0]
+
+    def denoiser(ctx, biases, g, g_rescale, ex, sigma_steps, **kw):
+        return make_denoise_fn(
+            params, model_cfg, ctx, biases, log_sigma_table, g, g_rescale,
+            attn_impl, compute_dtype=compute_dtype, conv_impl=conv_impl,
+            extras=ex, sigma_steps=sigma_steps, **kw)
+
+    x1, carry = solver_fn(
+        denoiser(context, region_biases, guidance_scale, guidance_rescale,
+                 extras, sigmas[:-1]),
+        latents, sigmas, noise=noise, segment=(0, gate), return_carry=True,
+        **solver_opts)
+    # the collect forward's unit scales are read at column 0 of their
+    # per-step tables, as in the JAX package (its schedule is [sigma_gate])
+    collect = denoiser(context, region_biases, guidance_scale,
+                       guidance_rescale, extras, sigmas[gate:gate + 1],
+                       collect_xattn=True)
+    _, xa = collect(x1, _sigma_tensor(sigmas[gate], latents.device))
+    if guidance_scale > 1.0:
+        # interleaved CFG rows [u0, c0, ...]: average each pair
+        xa = tuple(0.5 * (e[0::2] + e[1::2]) for e in xa)
+        ctx2, _, ex2 = cond_half_conditioning(context, None, extras)
+    else:
+        ctx2, ex2 = context, extras
+    if ex2 is not None and ex2.ip_tokens is not None:
+        ex2 = dataclasses.replace(ex2, ip_tokens=None, ip_scales=None,
+                                  ip_masks=None)
+    return solver_fn(
+        denoiser(ctx2, None, 1.0, 0.0, ex2, sigmas[:-1], xattn_cache=xa),
+        x1, sigmas, noise=noise, carry_in=carry,
+        segment=(gate, n_total - gate), **solver_opts)
+
+
+def _step_cached(fn, cache0, use_cache: np.ndarray):
+    """``fn(*args, cache, use) -> (out, cache)`` as ``f(*args) -> out``: the
+    closure holds the cache, and its i-th call passes ``use_cache[i]``.
+    DeepCache's solvers call the denoiser once a step, so the plain
+    recurrences run it unchanged."""
+    state = {"cache": cache0, "i": 0}
+
+    def f(*args):
+        out, state["cache"] = fn(*args, state["cache"],
+                                 use_cache[state["i"]])
+        state["i"] += 1
+        return out
+    return f
+
+
+def _sample_deepcache_core(params, latents, context, region_biases, extras,
+                           *, model_cfg: ModelConfig, solver_name: str,
+                           sigmas: np.ndarray, guidance_scale: float,
+                           guidance_rescale: float, attn_impl: str,
+                           cache_interval: int, conv_impl: str,
+                           log_sigma_table: torch.Tensor, compute_dtype):
+    """DeepCache on scaled initial latents: step i runs the full UNet and
+    refreshes the deep-feature cache when i % cache_interval == 0 (step 0
+    always), and reuses the cache otherwise
+    (``models.unet.unet_apply_deepcache``, in ``make_denoise_fn``'s denoiser
+    and the plain solver). The schedule is numpy on the host, so the choice
+    reads nothing from the device. ControlNet and T2I-Adapter residuals
+    inject into the cached deep branch and are rejected. Returns the final
+    latents."""
+    ex = extras or DenoiseExtras()
+    if ex.controlnet_params is not None or ex.t2i_residuals is not None:
+        raise ValueError(
+            "deepcache does not support ControlNet/T2I-Adapter units")
+    n = solvers.scan_length(solver_name, sigmas)
+    use_cache = (np.arange(n) % int(cache_interval) != 0).astype(np.float64)
+    b_in = latents.shape[0] * (2 if guidance_scale > 1.0 else 1)
+    cache0 = torch.zeros(deepcache_shape(model_cfg.unet, b_in,
+                                         latents.shape[1], latents.shape[2]),
+                         dtype=compute_dtype, device=latents.device)
+    cached = _step_cached(
+        lambda model_in, t_b, cond, cache, use: unet_apply_deepcache(
+            params["unet"], model_cfg.unet, model_in, t_b, cond, cache, use,
+            attn_impl=attn_impl, conv_impl=conv_impl),
+        cache0, use_cache)
+    denoise = _make_denoiser(
+        params, model_cfg, context, region_biases, log_sigma_table,
+        guidance_scale, guidance_rescale, attn_impl, compute_dtype,
+        conv_impl, extras, None,
+        lambda model_in, t_b, cond: (cached(model_in, t_b, cond), None))
+    return solvers.SOLVERS[solver_name][0](
+        lambda x, sigma: denoise(x, sigma)[0], latents, sigmas)
+
+
+def _denoise_once(params, x, context, region_biases, extras, *,
+                  model_cfg: ModelConfig, sigma: float,
+                  guidance_scale: float, guidance_rescale: float,
+                  attn_impl: str, conv_impl: str,
+                  log_sigma_table: torch.Tensor, compute_dtype):
+    """One CFG-mixed denoised estimate x0_hat(x, sigma): the solvers'
+    denoiser called once (bottleneck sampling's boundaries)."""
+    denoise = make_denoise_fn(
+        params, model_cfg, context, region_biases, log_sigma_table,
+        guidance_scale, guidance_rescale, attn_impl,
+        compute_dtype=compute_dtype, conv_impl=conv_impl, extras=extras,
+        sigma_steps=np.asarray([sigma], np.float64))
+    return denoise(x, _sigma_tensor(sigma, x.device))
 
 
 class StableDiffusionTorch:
@@ -890,5 +1108,182 @@ class StableDiffusionTorch:
                 return ChunkedPause(x=x, carry=carry, pos=pos,
                                     n_total=n_total)
         return self._decode(x, uint8_output) if decode else x
+
+    # -- opt-in speed modes (no reference counterpart) ----------------------
+
+    def _core_statics(self, gen: GenerationConfig, sigmas) -> dict:
+        """The keyword arguments the mode cores share."""
+        return dict(model_cfg=self.model_cfg, solver_name=gen.sampler,
+                    sigmas=sigmas, guidance_scale=gen.guidance_scale,
+                    guidance_rescale=gen.guidance_rescale,
+                    attn_impl=self.attn_impl, conv_impl=self.conv_impl,
+                    log_sigma_table=self.log_sigma_table,
+                    compute_dtype=gen.dtype)
+
+    @torch.inference_mode()
+    def txt2img_cfg_tail(self, context: torch.Tensor, gen: GenerationConfig,
+                         tail_frac: float, seed: SeedT = 0,
+                         region_biases=None, batch_size: int = 1,
+                         extras: Optional[DenoiseExtras] = None,
+                         decode: bool = True, uint8_output: bool = False):
+        """txt2img with the last ``tail_frac`` of the solver steps run on the
+        cond half alone, guidance off: ``sample_chunked`` paused at the
+        cutoff, then resumed (the same carry and noise) on
+        ``cond_half_conditioning``. At least one step keeps CFG;
+        ``tail_frac`` that leaves no tail, or guidance already off, is
+        ``txt2img`` itself, bit for bit."""
+        sigmas, _ = self._schedule(gen)
+        n_total = solvers.scan_length(gen.sampler, sigmas)
+        n_tail = int(round(n_total * float(tail_frac)))
+        cutoff = max(1, n_total - n_tail)  # keep >= 1 CFG step
+        if cutoff >= n_total or gen.guidance_scale <= 1.0:
+            return self.txt2img(context, gen, seed=seed,
+                                region_biases=region_biases,
+                                batch_size=batch_size, extras=extras,
+                                decode=decode, uint8_output=uint8_output)
+        pause = self.sample_chunked(
+            context, gen, seed=seed, region_biases=region_biases,
+            batch_size=batch_size, extras=extras, chunk_steps=cutoff,
+            on_chunk=lambda done, total: done < cutoff, decode=False)
+        ctx2, rb2, ex2 = cond_half_conditioning(context, region_biases,
+                                                extras)
+        return self.sample_chunked(
+            ctx2, dataclasses.replace(gen, guidance_scale=1.0), seed=seed,
+            region_biases=rb2, batch_size=batch_size, extras=ex2,
+            chunk_steps=n_total, resume=pause, decode=decode,
+            uint8_output=uint8_output)
+
+    @torch.inference_mode()
+    def txt2img_tgate(self, context: torch.Tensor, gen: GenerationConfig,
+                      gate_frac: float = 0.5, seed: SeedT = 0,
+                      region_biases=None, batch_size: int = 1,
+                      extras: Optional[DenoiseExtras] = None,
+                      decode: bool = True, uint8_output: bool = False):
+        """TGATE (temporal attention decomposition, ``_tgate_core``): the
+        cross-attention outputs are frozen after round(gate_frac * steps)
+        steps (at least 1) and the uncond half is dropped. ``gate_frac``
+        >= 1 is ``txt2img`` itself, bit for bit. Euler and DPM++ 2M only
+        (the gate's sigma must be the step's)."""
+        sigmas, defaults = self._schedule(gen)
+        n_total = solvers.scan_length(gen.sampler, sigmas)
+        gate = int(round(n_total * float(gate_frac)))
+        if gate >= n_total:
+            return self.txt2img(context, gen, seed=seed,
+                                region_biases=region_biases,
+                                batch_size=batch_size, extras=extras,
+                                decode=decode, uint8_output=uint8_output)
+        gate = max(1, gate)
+        if gen.sampler not in solvers.DEEPCACHE_SOLVERS:
+            raise ValueError(
+                f"tgate supports {sorted(solvers.DEEPCACHE_SOLVERS)}, "
+                f"not {gen.sampler!r}")
+        x, noise = self._init(gen, sigmas, seed, batch_size, None)
+        x = _tgate_core(self.params, x, context.to(self.device),
+                        region_biases, noise, extras, gate=gate,
+                        solver_opts=self._solver_opts(gen, defaults),
+                        **self._core_statics(gen, sigmas))
+        return self._decode(x, uint8_output) if decode else x
+
+    @torch.inference_mode()
+    def txt2img_deepcache(self, context: torch.Tensor, gen: GenerationConfig,
+                          cache_interval: int = 3, seed: SeedT = 0,
+                          region_biases=None, batch_size: int = 1,
+                          extras: Optional[DenoiseExtras] = None,
+                          decode: bool = True, uint8_output: bool = False):
+        """txt2img with DeepCache's deep-feature reuse
+        (``_sample_deepcache_core``): every ``cache_interval``-th step runs
+        the full UNet, the others its shallow layers. ``cache_interval=1``
+        runs every step in full and equals ``txt2img`` but for rounding.
+        Euler and DPM++ 2M only; ControlNet / T2I-Adapter units raise."""
+        if gen.sampler not in solvers.DEEPCACHE_SOLVERS:
+            raise ValueError(
+                f"deepcache supports {sorted(solvers.DEEPCACHE_SOLVERS)}, "
+                f"not {gen.sampler!r}")
+        sigmas, _ = self._schedule(gen)
+        x, _ = self._init(gen, sigmas, seed, batch_size, None)
+        x = _sample_deepcache_core(
+            self.params, x, context.to(self.device), region_biases, extras,
+            cache_interval=int(cache_interval),
+            **self._core_statics(gen, sigmas))
+        return self._decode(x, uint8_output) if decode else x
+
+    @torch.inference_mode()
+    def txt2img_bottleneck(self, context: torch.Tensor,
+                           gen: GenerationConfig, low_scale: float = 0.5,
+                           mid_frac: Tuple[float, float] = (0.2, 0.8),
+                           seed: SeedT = 0, region_biases=None,
+                           region_state=None, batch_size: int = 1,
+                           extras: Optional[DenoiseExtras] = None,
+                           decode: bool = True, uint8_output: bool = False):
+        """Bottleneck sampling: the first ``mid_frac[0]`` of the schedule at
+        full resolution, the middle at ``low_scale`` of the latent size
+        (8-aligned, at least 8), the tail at full size again. Each phase
+        restarts the solver; at each boundary the denoised estimate x0_hat
+        (``_denoise_once``) is resized bilinearly (``resize_latents``, no
+        antialiasing, as the JAX package's) and re-noised at the boundary
+        sigma with ``bottleneck_draws``'s draws. ``region_state`` = (states,
+        prompt ids, num_images_per_prompt) re-encodes the map at each size;
+        precomputed ``region_biases`` alone raise, as do resolution-bound
+        extras (ControlNet, T2I-Adapter, inpaint); IP tokens pass. Euler
+        and DPM++ 2M only."""
+        if gen.sampler not in solvers.DEEPCACHE_SOLVERS:
+            raise ValueError(
+                f"bottleneck sampling supports "
+                f"{sorted(solvers.DEEPCACHE_SOLVERS)}, not {gen.sampler!r}")
+        ex = extras or DenoiseExtras()
+        if (ex.controlnet_params is not None or ex.t2i_residuals is not None
+                or ex.inpaint_mask is not None
+                or ex.extra_channels is not None):
+            raise ValueError(
+                "bottleneck sampling does not support resolution-bound "
+                "extras (ControlNet / T2I-Adapter / inpaint)")
+        if region_biases is not None and region_state is None:
+            raise ValueError(
+                "bottleneck sampling needs region_state (raw states + "
+                "prompt ids) to re-encode biases at the low resolution; "
+                "precomputed region_biases alone cannot serve both sizes")
+        sigmas, _ = self._schedule(gen)
+        n = len(sigmas) - 1
+        i1 = max(1, int(round(n * float(mid_frac[0]))))
+        i2 = min(n - 1, int(round(n * float(mid_frac[1]))))
+        if not i1 < i2:
+            raise ValueError(f"mid_frac {mid_frac} leaves no middle phase "
+                             f"for {n} steps")
+        lh, lw = gen.latent_height, gen.latent_width
+        # the UNet downsamples 3x: keep the low-res latent 8-aligned
+        bh = max(8, int(round(lh * float(low_scale) / 8)) * 8)
+        bw = max(8, int(round(lw * float(low_scale) / 8)) * 8)
+        seeds = _seed_list(seed, batch_size)
+        latents, eps_lo, eps_hi = bottleneck_draws(
+            seeds, (bh, bw, 4), (lh, lw, 4), self.device)
+        x, _ = self._init(gen, sigmas, seeds, batch_size, latents)
+        hi_biases, lo_biases = region_biases, None
+        if region_state is not None:
+            states, ids, nipp = region_state
+            do_cfg = gen.guidance_scale > 1.0
+            hi_biases = self.encode_region(
+                states, ids, height=lh * 8, width=lw * 8,
+                num_images_per_prompt=nipp, do_cfg=do_cfg)
+            lo_biases = self.encode_region(
+                states, ids, height=bh * 8, width=bw * 8,
+                num_images_per_prompt=nipp, do_cfg=do_cfg)
+        statics = self._core_statics(gen, sigmas)
+        for k in ("solver_name", "sigmas"):
+            statics.pop(k)
+
+        def boundary(x, sigma, new_h, new_w, biases, eps):
+            x0 = _denoise_once(self.params, x, context.to(self.device),
+                               biases, extras, sigma=float(sigma), **statics)
+            return (resize_latents(x0, new_h, new_w, mode="bilinear")
+                    + float(sigma) * eps)
+
+        x = self._sample(x, context, hi_biases, sigmas[:i1 + 1], gen, None,
+                         False, False, extras=extras)
+        x = boundary(x, sigmas[i1], bh, bw, hi_biases, eps_lo)
+        x = self._sample(x, context, lo_biases, sigmas[i1:i2 + 1], gen, None,
+                         False, False, extras=extras)
+        x = boundary(x, sigmas[i2], lh, lw, lo_biases, eps_hi)
+        return self._sample(x, context, hi_biases, sigmas[i2:], gen, None,
+                            decode, uint8_output, extras=extras)
 
     to_uint8 = staticmethod(to_uint8)

@@ -455,6 +455,12 @@ def sample_dpmpp_2m(denoise: DenoiseFn, x, sigmas: np.ndarray, *,
     return _run(step, (x, torch.zeros_like(x)), len(sig), **kw)
 
 
+#: The solvers DeepCache, TGATE and bottleneck sampling take: one denoiser
+#: call a step and no noise, so a per-step cache rides in a closure
+#: (``pipeline._step_cached``) around the plain recurrence.
+DEEPCACHE_SOLVERS = frozenset({"euler", "dpmpp_2m"})
+
+
 def sample_dpmpp_sde(denoise: DenoiseFn, x, sigmas: np.ndarray, *,
                      noise=None, eta=1.0, s_noise=1.0, r=0.5, **kw):
     """DPM++ SDE. noise: (n_steps, 2, *x.shape), two draws a step. Skips the

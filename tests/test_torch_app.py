@@ -487,6 +487,9 @@ REQUESTS = [
     ("grid_states", {"prompt": ["a", "b"], "region_state": [_state(64)]}),
     ("grid_inits", {"prompt": ["a", "b"], "init_image": [_INIT] * 3}),
     ("grid_cfg_tail", {"prompt": ["a", "b"], "cfg_tail_frac": 0.2}),
+    # the JAX package's grid mode neither runs nor refuses TGATE: the
+    # grid samples plainly
+    ("grid_tgate", {"prompt": ["a", "b"], "tgate_gate_frac": 0.5}),
     ("unknown_sampler", {"sampler": "Euler b"}),
     ("unknown_hires_sampler", {"hires_scale": 2.0,
                                "hires_sampler": "Euler b"}),
@@ -505,6 +508,13 @@ REQUESTS = [
     (f"{a}+preview", {a: va, "latent_preview": True}) for a, va in _TURBO
 ] + [
     (a, {a: va, "region_state": _state(64)}) for a, va in _TURBO
+] + [
+    (f"{a}_nipp2_cfg_off", {a: va, "num_images_per_prompt": 2,
+                            "cfg_scale": 1.0, "region_state": _state(64)})
+    for a, va in _TURBO
+] + [
+    (f"{a}_t2i_ip", {a: va, "t2i_units": [_T2I], "ip_adapter_units": [_IP]})
+    for a, va in _TURBO
 ] + [  # ControlNet and T2I-Adapter units: dicts made into each package's
     # unit dataclass by _run
     ("cn", {"controlnet_units": [_CN]}),
@@ -735,10 +745,9 @@ def _run(package, monkeypatch, kwargs, arrays=None):
 def test_inference_routes_as_jax(kwargs, monkeypatch):
     """Both packages' inference() make the same pipeline calls with the
     same arguments in the same order, and return images of the same shape
-    or raise the same error. A request JAX sends to a speed mode raises
-    NotImplementedError naming ROADMAP item 18 in the port, after the same
-    calls; a unit's preprocessor raises naming item 20, at the manager call
-    where the JAX package would build it. A unit model from a path is
+    or raise the same error; the speed modes route to the same pipeline
+    method with the same arguments. A unit's preprocessor raises naming
+    item 20, at the manager call where the JAX package would build it. A unit model from a path is
     loaded by both packages (a file that is no weight file raises the same
     error in both). The unit images the
     extras builders get (fitted to the request's size, or the hires pass's)
@@ -746,11 +755,7 @@ def test_inference_routes_as_jax(kwargs, monkeypatch):
     jarr, tarr = [], []
     jlog, jticks, jout = _run("jax", monkeypatch, kwargs, jarr)
     tlog, tticks, tout = _run("torch", monkeypatch, kwargs, tarr)
-    speed = [c for c in jlog if c[0].startswith("txt2img_")]
-    if speed and jout[0] == "ok":
-        assert tout[0] == "NotImplementedError" and "item 18" in tout[1]
-        jlog = jlog[:jlog.index(speed[0])]
-    elif tout[0] == "NotImplementedError" and jout[0] == "ok":
+    if tout[0] == "NotImplementedError" and jout[0] == "ok":
         assert "item 20" in tout[1] and tlog[-1][0] == "get_preprocessor"
         jlog, jarr = jlog[:len(tlog)], []
     else:
@@ -909,7 +914,8 @@ def test_watchdog_and_progress_cb_stop_a_run(manager):
 
 def test_unported_paths_raise_naming_their_item(manager, tmp_path):
     """What is not ported raises naming its ROADMAP item: a unit's
-    preprocessor (20) and the speed modes (18). Weights from a path load
+    preprocessor (20); the speed modes run (tests/test_torch_speed_modes.py)
+    and no error names their item (18). Weights from a path load
     (tests/test_torch_convert.py, test_torch_lora_ti.py): a path that holds
     no weight file raises what the JAX package raises there, at the first
     use of what it names. A unit model by name runs, and so do the
@@ -918,12 +924,12 @@ def test_unported_paths_raise_naming_their_item(manager, tmp_path):
     base = dict(prompt=PROMPT, model="tiny", steps=2, width=64, height=64,
                 dtype=torch.float32)
     img = np.zeros((64, 64, 3), np.float32)
-    for kwargs, item in (
-            ({"controlnet_units": [tapi.ControlNetUnit(
-                "Canny", img, preprocessor="Canny")]}, 20),
-            ({"tgate_gate_frac": 0.5}, 18)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tapi.inference(manager, **{**base, **kwargs})
+    with pytest.raises(NotImplementedError, match="item 20"):
+        tapi.inference(manager, **{**base, "controlnet_units": [
+            tapi.ControlNetUnit("Canny", img, preprocessor="Canny")]})
+    out = tapi.inference(manager, **{**base, "tgate_gate_frac": 0.5,
+                                     "sampler": "Euler"})
+    assert out["images"].shape == (1, 64, 64, 3)
     for kwargs, error in (
             ({"t2i_units": [tapi.T2IAdapterUnit(str(tmp_path), img)]},
              FileNotFoundError),

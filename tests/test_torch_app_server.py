@@ -164,7 +164,10 @@ def test_warmup_returns_one_record_per_config(server):
     ("ip-adapter unit", {**BASE, "ip_adapter_units": [
         {"model": os.path.abspath(__file__), "image_embeds": [0.0] * 8}]},
      500, "UnpicklingError"),
-    ("speed mode", {**BASE, "deepcache_interval": 3}, 501, "item 18"),
+    # a speed mode runs (test_generate_speed_modes_equal_inference); with a
+    # solver it does not take it is a caller's mistake
+    ("speed mode", {**BASE, "deepcache_interval": 3}, 400,
+     "deepcache supports ['dpmpp_2m', 'euler'], not 'euler_ancestral'"),
 ], ids=lambda c: c[0])
 def test_generate_errors(server, case):
     srv, _ = server
@@ -172,6 +175,31 @@ def test_generate_errors(server, case):
     status, out = _call(srv, "/generate", payload)
     assert status == code and text in out["error"], out
 
+
+
+@pytest.mark.parametrize("mode", [
+    {"cfg_tail_frac": 0.5}, {"deepcache_interval": 2},
+    {"bottleneck_low_scale": 0.5, "width": 128, "height": 128},
+    {"tgate_gate_frac": 0.5}], ids=lambda m: next(iter(m)))
+def test_generate_speed_modes_equal_inference(server, mode):
+    """A speed-mode POST answers 200 with the PNG of a direct
+    ``inference()`` call, another image than the plain request's."""
+    srv, m = server
+    payload = {**BASE, "sampler": "Euler", "steps": 4,
+               "region_state": _state_json(), **mode}
+    if "width" in mode:
+        payload["region_state"] = {"red cat": {
+            "mask": np.kron(np.asarray(_state_json()["red cat"]["mask"]),
+                            np.ones((2, 2), int)).tolist(),
+            "weight": 0.8, "mask_outsides": 0.2}}
+    status, out = _call(srv, "/generate", payload)
+    assert status == 200, out
+    direct = tapi.inference(m, **tserver._inference_kwargs(payload))
+    assert base64.b64decode(out["images"][0]) == \
+        native.encode_png(direct["images"][0])
+    plain = {k: v for k, v in payload.items() if k not in mode
+             or k in ("width", "height")}
+    assert _call(srv, "/generate", plain)[1]["images"] != out["images"]
 
 def test_generate_with_units_equals_inference(server):
     """ControlNet and T2I-Adapter units over HTTP (the unit images as nested

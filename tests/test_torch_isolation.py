@@ -47,6 +47,9 @@ IP_ADAPTER = tuple(f"diffusionspatialcontrol_tpu_torch.{m}" for m in (
 # only way to the format (the card's machine has no safetensors package)
 CONVERT = tuple(f"diffusionspatialcontrol_tpu_torch.convert.{m}" for m in (
     "safetensors", "hf", "lora", "textual_inversion", "cache"))
+# DAAM heatmaps (the speed modes live in modules the probe already loads)
+INTROSPECT = ("diffusionspatialcontrol_tpu_torch.introspect",
+              "diffusionspatialcontrol_tpu_torch.introspect.daam")
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -69,7 +72,7 @@ def test_importing_every_port_module_loads_no_jax():
                          check=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(result["modules"]) >= 20
-    assert set(APP_LAYER + UNITS + IP_ADAPTER + CONVERT) <= \
+    assert set(APP_LAYER + UNITS + IP_ADAPTER + CONVERT + INTROSPECT) <= \
         set(result["modules"])
     assert result["loaded"] == []
 

@@ -102,17 +102,25 @@ def test_unet_fused_convs_match_jax_xla(unet_params, conv_impl):
 
 
 def test_unet_rejects_unported_options(unet_params):
-    """FreeU, heatmaps and the TGATE cache still raise; ControlNet and T2I
-    residuals (``UNetCond``) now run: zero residuals leave the output as it
-    is, bit for bit (their parity is tests/test_torch_units.py's)."""
+    """FreeU, heatmaps and the TGATE taps now run
+    (tests/test_torch_unet_modes.py holds them to the JAX UNet); a keyword
+    the JAX package's ``unet_apply`` lacks, or its ``axis_name`` (ROADMAP
+    item 22), is a TypeError as for any call; an unknown ``conv_impl``
+    raises ValueError; ControlNet and T2I residuals (``UNetCond``) run:
+    zero residuals leave the output as it is, bit for bit (their parity is
+    tests/test_torch_units.py's)."""
     _, tp = unet_params
     x, ctx, t, _ = _inputs(2)
     cond = tunet.UNetCond(context=torch.from_numpy(ctx))
     args = (tp, tcfg.tiny_config().unet, torch.from_numpy(x),
             torch.from_numpy(t), cond)
-    for option in ({"freeu": object()}, {"collect_heatmaps": True},
-                   {"xattn_cache": ()}):
-        with pytest.raises(NotImplementedError):
+    for option in ({"freeu": tunet.FreeUParams()},
+                   {"collect_heatmaps": True}, {"collect_xattn": True}):
+        out = tunet.unet_apply(*args, **option)
+        out = out if torch.is_tensor(out) else out[0]
+        assert out.shape == (2, 16, 16, 4) and torch.isfinite(out).all()
+    for option in ({"axis_name": "batch"}, {"no_such_option": 1}):
+        with pytest.raises(TypeError):
             tunet.unet_apply(*args, **option)
     with pytest.raises(ValueError):
         tunet.unet_apply(*args, conv_impl="cudnn")
