@@ -123,7 +123,21 @@ result line:
    DeepCache request (``inference()``'s PNG bit for bit), and
    ``/warmup``, with exact UNet calls and launches; the HTTP, direct and
    pipeline p50s side by side, and one HTTP request profiled by its
-   kernels.
+   kernels;
+8. preprocess: the control preprocessors. Every detector network at the
+   small config of the CPU tests, card against CPU (within 1e-4 of the
+   output's largest value); every network at its published width (DPT-
+   Large, ZoeDepth's BEiT-L, UperNet-ConvNeXt-T, NNET on EfficientNet-B5,
+   the openpose body, hand and face nets, HED, PidiNet, both lineart nets,
+   MLSD; random fp32 weights) timed on the card and held to its CPU run
+   with cuDNN's TF32 off and on; every name of the app's table through
+   ``ModelManager.get_preprocessor`` on a 512^2 photo; the slice's request
+   ``spatial_controlnet_depth`` (the spatial request with a ControlNet
+   unit whose ``preprocessor`` is "Depth", DPT-Large) through
+   ``inference()`` and as a POST /generate, whose PNG must be
+   ``inference()``'s bit for bit, with exact K1/K2 launches and one
+   profile; and POST /preprocess of "Canny" and "Openpose" (with the
+   hand net), each PNG the in-process detector's.
 
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.
@@ -136,12 +150,14 @@ times are taken alike. ``--no-profiles`` skips the profiles queued for the
 end of the run: with ``--phases build,main`` it takes two trees' p50s in
 one call. The queued profiles stop once the script has run
 ``PROFILE_DEADLINE_S`` (900 s), and the log names those left out, so the
-whole run stays inside its 1200 s limit.
+whole run stays inside its 1200 s limit; the request types in
+``UNPROFILED`` are timed but not profiled.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -152,7 +168,8 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("build", "kernels", "tiny", "main", "modes", "weights", "app")
+PHASES = ("build", "kernels", "tiny", "main", "modes", "weights", "app",
+          "preprocess")
 
 PROMPT = "a red cat sitting on a wooden bench, a blue bird flying"
 NEG = "bad quality, low quality, jpeg artifact, cropped"
@@ -217,6 +234,10 @@ ROUNDS = 4  # phase app: timed rounds of each path after one warm-up
 # The queued profiles stop once the script has run this long (a profile
 # takes 8-52 s), so that it stays inside its 1200 s limit.
 PROFILE_DEADLINE_S = 900.0
+# request types timed but no longer profiled: PERF.md section 5 holds their
+# profiles, and the time goes to phase preprocess (the weights
+# phase's init-strides request and inpaint_asym's profiles are dropped too)
+UNPROFILED = ("tgate_vanilla", "deepcache_pallas2")
 NEW_SEEDS = [0, 1, 2, 3, 4]  # the images-in and SD2.1 requests: a warm-up
 
 _PALLAS = "diffusionspatialcontrol_tpu/ops/pallas/"
@@ -2073,7 +2094,8 @@ def phase_modes(ctx):
     for kind, run, calls, want in requests:
         serve(ctx, kind, run, MODE_SEEDS, calls, want, 512, strict=True,
               phase="modes")
-        defer_profile(ctx, lambda run=run: run(99), kind)
+        if kind not in UNPROFILED:
+            defer_profile(ctx, lambda run=run: run(99), kind)
         if kind == "bottleneck_spatial":
             # the middle phase's level 0: L = 1024 on K1 and K2
             w = _wrappers()
@@ -2522,8 +2544,6 @@ def main_other_models(ctx, gen, state, init, mask):
                                      "9-channel UNet, an asymmetric VAE)")
     serve(ctx, "inpaint_asym", inpaint(pipe, c, rb), NEW_SEEDS, STEPS, want,
           512)
-    defer_profile(ctx, lambda p=pipe, c=c, rb=rb: inpaint(p, c, rb)(99),
-                  "inpaint_asym")
     cfg21 = sd21_config()
     params = init_pipeline_params(0, cfg21, torch.bfloat16)
     pipe, c, rb = load(cfg21, params, "sd21_config")
@@ -3021,6 +3041,411 @@ def phase_app(ctx):
     torch.cuda.empty_cache()
 
 
+DETECT_SIDE = 512  # phase preprocess: the photo, and the request's size
+
+
+def _detector_nets():
+    """(name, draw() -> state dict, convert(sd, device), apply(params, x),
+    input shape) of each detector network at its published width, its
+    random weights those that ``get_preprocessor`` draws."""
+    from diffusionspatialcontrol_tpu_torch.models import (
+        dpt, hed, lineart, lineart_anime, mlsd, normalbae, openpose,
+        pidinet, upernet, zoedepth)
+
+    d, z, u, n = (dpt.DPTConfig(), zoedepth.ZoeDepthConfig(),
+                  upernet.UperNetConfig(), normalbae.NormalBaeConfig())
+    return (
+        ("Depth", lambda: dpt.random_state_dict(d, 0),
+         lambda sd, dev: dpt.convert_dpt(sd, d, dev),
+         lambda p, x: dpt.dpt_apply(p, d, x), (1, 384, 384, 3)),
+        ("Zoedepth", lambda: zoedepth.random_state_dict(z, 0),
+         lambda sd, dev: zoedepth.convert_zoedepth(sd, z, dev),
+         lambda p, x: zoedepth.zoedepth_apply(p, z, x)[0],
+         (1, 384, 512, 3)),
+        ("Semantic Segmentation", lambda: upernet.random_state_dict(u, 0),
+         lambda sd, dev: upernet.convert_upernet(sd, u, dev),
+         lambda p, x: upernet.upernet_apply(p, u, x), (1, 512, 512, 3)),
+        ("Normal Map", lambda: normalbae.random_state_dict(n, 0),
+         lambda sd, dev: normalbae.convert_nnet(sd, n, dev),
+         lambda p, x: normalbae.nnet_apply(p, n, x), (1, 512, 512, 3)),
+        ("Openpose", lambda: openpose.random_state_dict(seed=0),
+         openpose.convert_openpose_body,
+         lambda p, x: torch.cat(openpose.openpose_body_apply(p, x), -1),
+         (1, 368, 368, 3)),
+        ("Openpose (hand)", lambda: openpose.random_hand_state_dict(seed=0),
+         openpose.convert_openpose_hand, openpose.openpose_hand_apply,
+         (1, 368, 368, 3)),
+        ("Openpose (face)", lambda: openpose.random_face_state_dict(seed=0),
+         openpose.convert_openpose_face, openpose.openpose_face_apply,
+         (1, 368, 368, 3)),
+        ("Soft Edge", lambda: pidinet.random_state_dict(seed=0),
+         pidinet.convert_pidinet, pidinet.pidinet_apply, (1, 512, 512, 3)),
+        ("Soft Edge (HED)", lambda: hed.random_state_dict(seed=0),
+         hed.convert_hed, lambda p, x: hed.hed_apply(p, x)[0],
+         (1, 512, 512, 3)),
+        ("Lineart", lambda: lineart.random_state_dict(seed=0),
+         lineart.convert_lineart, lineart.lineart_apply, (1, 512, 512, 3)),
+        ("Lineart (anime)", lambda: lineart_anime.random_state_dict(seed=0),
+         lineart_anime.convert_lineart_anime,
+         lineart_anime.lineart_anime_apply, (1, 512, 512, 3)),
+        ("MLSD", lambda: mlsd.random_state_dict(seed=0), mlsd.convert_mlsd,
+         mlsd.mlsd_apply, (1, 512, 512, 4)),
+    )
+
+
+def _tiny_nets():
+    """The same networks at the small configs of the CPU tests."""
+    from diffusionspatialcontrol_tpu_torch.models import (
+        dpt, hed, lineart, lineart_anime, mlsd, normalbae, openpose,
+        pidinet, upernet, zoedepth)
+
+    d, n, z = dpt.DPT_FALLBACK, normalbae.NNET_TINY, zoedepth.ZOE_TINY
+    u = upernet.UperNetConfig(hidden_sizes=(8, 12, 16, 24),
+                              depths=(1, 1, 2, 1), head_channels=16,
+                              num_labels=10)
+    op = openpose.OpenposeConfig(8)
+    return (
+        ("Depth", dpt.random_state_dict(d, 1),
+         lambda sd, dev: dpt.convert_dpt(sd, d, dev),
+         lambda p, x: dpt.dpt_apply(p, d, x), (1, 64, 96, 3)),
+        ("Zoedepth", zoedepth.random_state_dict(z, 1),
+         lambda sd, dev: zoedepth.convert_zoedepth(sd, z, dev),
+         lambda p, x: zoedepth.zoedepth_apply(p, z, x)[0], (1, 64, 96, 3)),
+        ("Semantic Segmentation", upernet.random_state_dict(u, 1),
+         lambda sd, dev: upernet.convert_upernet(sd, u, dev),
+         lambda p, x: upernet.upernet_apply(p, u, x), (1, 64, 96, 3)),
+        ("Normal Map", normalbae.random_state_dict(n, 1),
+         lambda sd, dev: normalbae.convert_nnet(sd, n, dev),
+         lambda p, x: normalbae.nnet_apply(p, n, x), (1, 64, 64, 3)),
+        ("Openpose", openpose.random_state_dict(op, 1),
+         openpose.convert_openpose_body,
+         lambda p, x: torch.cat(openpose.openpose_body_apply(p, x), -1),
+         (1, 64, 48, 3)),
+        ("Openpose (hand)", openpose.random_hand_state_dict(op, 1),
+         openpose.convert_openpose_hand, openpose.openpose_hand_apply,
+         (1, 64, 48, 3)),
+        ("Openpose (face)", openpose.random_face_state_dict(op, 1),
+         openpose.convert_openpose_face, openpose.openpose_face_apply,
+         (1, 64, 48, 3)),
+        ("Soft Edge", pidinet.random_state_dict(seed=1),
+         pidinet.convert_pidinet, pidinet.pidinet_apply, (1, 64, 64, 3)),
+        ("Soft Edge (HED)", hed.random_state_dict(
+            hed.HEDConfig((8, 12, 16, 16, 24)), 1), hed.convert_hed,
+         lambda p, x: hed.hed_apply(p, x)[0], (1, 48, 64, 3)),
+        ("Lineart", lineart.random_state_dict(lineart.LineartConfig(8), 1),
+         lineart.convert_lineart, lineart.lineart_apply, (1, 32, 48, 3)),
+        ("Lineart (anime)", lineart_anime.random_state_dict(
+            lineart_anime.LineartAnimeConfig(4), 1),
+         lineart_anime.convert_lineart_anime,
+         lineart_anime.lineart_anime_apply, (1, 256, 256, 3)),
+        ("MLSD", mlsd.random_state_dict(mlsd.MLSDConfig(
+            stem=8, stage_widths=(4, 6, 8, 8, 12), decoder=8), 1),
+         mlsd.convert_mlsd, mlsd.mlsd_apply, (1, 64, 64, 4)),
+    )
+
+
+def _rel_err(card: torch.Tensor, host: torch.Tensor, name: str):
+    """max |card - host| over max |host|; for NNET ("Normal Map") the
+    largest such error outside the pixels whose refinement the two runs
+    selected differently (a top-k over uncertainties that differ by
+    rounding), and that share of the pixels."""
+    card = card.float().cpu()
+    diff = (card - host).abs() / host.abs().max().clamp_min(1e-12)
+    if name != "Normal Map":
+        return float(diff.max()), 0.0
+    flipped = diff.amax(-1) > 1e-2
+    return float(diff[~flipped].max()), float(flipped.float().mean())
+
+
+def _event_ms(fn, reps: int = 3) -> float:
+    """Median milliseconds of ``fn()`` between two CUDA events, after one
+    warm-up call (the card's time from the first launch to the last
+    kernel's end, the host's launch gaps included)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+TINY_DETECTOR_TOL = 1e-4  # card against CPU, of the output's max abs
+SERVED_DETECTOR_TOL = 1e-4  # the same at published width, as served
+CPU_BUDGET_S = 10.0  # the published widths' CPU runs held to the card
+
+
+def phase_preprocess(ctx):
+    """The control preprocessors on the card:
+
+    1. every network at its small config of the CPU tests (fp32, TF32 off):
+       the card against the port on the CPU, within
+       ``TINY_DETECTOR_TOL`` of the output's largest value;
+    2. every network at its published width (random weights from
+       ``random_state_dict(cfg, seed=0)``, fp32) on its detector's input:
+       the device ms (CUDA events, median of 3 after a warm-up), and the
+       card against the CPU (a note where the CPU run takes over
+       ``CPU_BUDGET_S``), as served (under ``strict_fp32``, within
+       ``SERVED_DETECTOR_TOL`` of the output's largest value) and with
+       PyTorch's default cuDNN TF32 (read, not bound); from here on the
+       process-wide setting is PyTorch's default, TF32 on, as in a server;
+    3. every name of the app's table through a ``ModelManager``'s
+       ``get_preprocessor`` (the model-based ones at published width, the
+       same random weights) on a 512^2 photo: the seconds to build, the
+       wall ms a call, the output's shape and range, and the same output
+       bit for bit with the process-wide TF32 off (the detector decides its
+       precision);
+    4. the slice's request, ``spatial_controlnet_depth``: SD1.5 at full
+       width, the spatial request (512^2, the two-phrase map, 25 steps) with
+       one ControlNet unit (random heads at ``HEAD_RMS``) whose
+       ``preprocessor`` is "Depth" (DPT-Large), on the photo as a uint8
+       nested list: ``inference()`` (one warm-up, then timed; exact UNet
+       calls and K1/K2 launches, K2 as ``spatial_controlnet``), a POST
+       /generate of the same payload whose PNG must equal ``inference()``'s
+       bit for bit, and one profile by its kernels;
+       The Depth detector alone is timed and profiled by its kernels;
+    5. POST /preprocess of "Canny" and of "Openpose" with ``include_hand``,
+       each PNG equal to the in-process detector's."""
+    import base64
+
+    from diffusionspatialcontrol_tpu_torch import sd15_config
+    from diffusionspatialcontrol_tpu_torch.app import api
+    from diffusionspatialcontrol_tpu_torch.app.server import (
+        _inference_kwargs,
+    )
+    from diffusionspatialcontrol_tpu_torch.app.server import serve as http
+    from diffusionspatialcontrol_tpu_torch.models._nets import strict_fp32
+    from diffusionspatialcontrol_tpu_torch.ops import preprocess as pp
+    from diffusionspatialcontrol_tpu_torch.runtime import native
+
+    dev = ctx["device"]
+    cudnn = torch.backends.cudnn
+    # 1. the small configs, card against CPU
+    t0 = time.perf_counter()
+    worst = 0.0
+    for name, sd, convert, apply, shape in _tiny_nets():
+        x = torch.from_numpy(np.random.default_rng(0).uniform(
+            -1, 1, shape).astype(np.float32))
+        host = apply(convert(sd, "cpu"), x)
+        card = apply(convert(sd, dev), x.to(dev))
+        err, flipped = _rel_err(card, host, name)
+        worst = max(worst, err)
+        if not (err <= TINY_DETECTOR_TOL and flipped <= 1e-3):
+            raise AssertionError(f"preprocess: {name} (small) on the card "
+                                 f"{err:.3g} of max abs from the CPU "
+                                 f"({flipped:.3g} of the pixels refined "
+                                 f"otherwise)")
+    log(f"preprocess: the 12 networks at their small configs on the card "
+        f"within {worst:.3g} of their CPU runs (bound {TINY_DETECTOR_TOL}; "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+    # 2. published widths: device ms, card against CPU; from here on the
+    # process-wide flags are PyTorch's defaults (cuDNN's TF32 on), as in a
+    # server, and a served detector turns TF32 off itself
+    cudnn.allow_tf32 = True
+    served = {"served": strict_fp32, "tf32": contextlib.nullcontext}
+    t0 = time.perf_counter()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)
+    for name, draw, convert, apply, shape in _detector_nets():
+        t_draw = time.perf_counter()
+        sd = draw()
+        n_params = sum(v.size for v in sd.values())
+        p = convert(sd, dev)
+        draw_s = time.perf_counter() - t_draw
+        x = torch.from_numpy(np.random.default_rng(1).uniform(
+            -1, 1, shape).astype(np.float32)).to(dev)
+        out, ms = {}, {}
+        for mode, precision in served.items():
+            with precision():
+                out[mode] = apply(p, x)
+                ms[mode] = _event_ms(lambda: apply(p, x))
+        if not all(bool(torch.isfinite(o).all()) for o in out.values()):
+            raise AssertionError(f"preprocess: {name}: non-finite output")
+        t_cpu = time.perf_counter()
+        host = apply(convert(sd, "cpu"), x.cpu())
+        cpu_s = time.perf_counter() - t_cpu
+        errs = {mode: _rel_err(o, host, name) for mode, o in out.items()}
+        if cpu_s > CPU_BUDGET_S:
+            log(f"preprocess: {name}: the CPU run took {cpu_s:.1f} s (over "
+                f"{CPU_BUDGET_S} s)")
+        if not (errs["served"][0] <= SERVED_DETECTOR_TOL
+                and errs["served"][1] <= 1e-3):
+            raise AssertionError(f"preprocess: {name} on the card as served "
+                                 f"{errs['served']} of max abs from the CPU "
+                                 f"(bound {SERVED_DETECTOR_TOL})")
+        log(f"preprocess: {name}: {n_params / 1e6:.1f} M parameters (drawn "
+            f"and moved in {draw_s:.1f} s), input {shape}: "
+            f"{ms['served']:.3f} ms on the card as served (TF32 off), "
+            f"{ms['tf32']:.3f} ms with cuDNN's TF32; card against CPU (CPU "
+            f"{cpu_s:.1f} s): {errs['served'][0]:.3g} as served (bound "
+            f"{SERVED_DETECTOR_TOL}), {errs['tf32'][0]:.3g} with TF32 of max "
+            f"abs {float(host.abs().max()):.3g}"
+            + (f" (pixels refined otherwise: {errs['served'][1]:.3g}, "
+               f"{errs['tf32'][1]:.3g})" if name == "Normal Map" else "")
+            + f"; output {tuple(out['served'].shape)}")
+        del p, out, host
+    torch.set_num_threads(threads)
+    torch.cuda.empty_cache()
+    log(f"preprocess: the networks at published width in "
+        f"{time.perf_counter() - t0:.1f} s (card: {card_line()})")
+
+    # 3. the app's table through the manager, on a 512^2 photo
+    t0 = time.perf_counter()
+    photo = (synthetic_image(DETECT_SIDE, 11)[0] * 127.5 + 127.5).astype(
+        np.uint8)
+    manager = api.ModelManager()
+    from diffusionspatialcontrol_tpu_torch.models import (
+        dpt, normalbae, upernet, zoedepth)
+
+    for name, cfg in (("Depth", dpt.DPTConfig()),
+                      ("Zoedepth", zoedepth.ZoeDepthConfig()),
+                      ("Semantic Segmentation", upernet.UperNetConfig()),
+                      ("Normal Map", normalbae.NormalBaeConfig())):
+        manager.register_preprocessor(name, cfg=cfg)
+    outs = {}
+    for name in list(pp.NATIVE_PREPROCESSORS) + list(
+            pp.NATIVE_MODEL_PREPROCESSORS):
+        tb = time.perf_counter()
+        fn = manager.get_preprocessor(name)
+        opts = {"include_hand": True, "include_face": True} \
+            if name == "Openpose" else {}
+        out = fn(photo, **opts)  # the first call: warm-up
+        build_s = time.perf_counter() - tb
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            tw = time.perf_counter()
+            out = fn(photo, **opts)
+            walls.append(1e3 * (time.perf_counter() - tw))
+        outs[name] = out
+        cudnn.allow_tf32 = False
+        same = np.array_equal(fn(photo, **opts), out)
+        cudnn.allow_tf32 = True
+        if not same:
+            raise AssertionError(f"preprocess: {name}: the output changes "
+                                 f"with the process-wide TF32 setting")
+        if out.shape != (DETECT_SIDE, DETECT_SIDE, 3) or \
+                out.dtype != np.float32 or not np.isfinite(out).all() or \
+                out.min() < 0.0 or out.max() > 1.0:
+            raise AssertionError(f"preprocess: {name}: output {out.shape} "
+                                 f"{out.dtype} [{out.min()}, {out.max()}]")
+        log(f"preprocess: {name!r}{' (hand and face)' if opts else ''}: "
+            f"built and first call {build_s:.2f} s, then "
+            f"{np.median(walls):.1f} ms a call (wall), output "
+            f"{out.shape} in [{out.min():.3f}, {out.max():.3f}], mean "
+            f"{out.mean():.3f}, the same with TF32 off process-wide")
+    log(f"preprocess: {len(outs)} detectors through the manager in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # 4. the slice's request
+    cfg = sd15_config()
+    t0 = time.perf_counter()
+    manager.register_random("sd15", cfg, seed=0)
+    _with_text_bias(manager._cache["sd15"], 0)
+    manager._controlnets["Depth"] = unit_controlnet(
+        cfg.unet, 1, dev, torch.bfloat16, HEAD_RMS)
+    server = http(manager, port=0, block=False)
+    port = server.server_address[1]
+    side = DETECT_SIDE  # the request's size, the photo's
+    state = _masks(side, side)
+    base = {"prompt": PROMPT, "neg_prompt": NEG, "model": "sd15",
+            "sampler": "DPM++ 2M Karras", "steps": STEPS, "cfg_scale": 7.5,
+            "width": side, "height": side, "seed": 0, "encoding_mode": "short",
+            "region_state": _json_state(state)}
+    payload = {**base, "controlnet_units": [{
+        "model": "Depth", "image": photo.tolist(), "preprocessor": "Depth"}]}
+    kwargs = _inference_kwargs(payload)
+    want = want_launches(cfg, side, STEPS, True, "xla", controlnets=1)
+    log(f"preprocess: SD1.5 and a ControlNet with random heads on the "
+        f"manager, the server on port {port}, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    _reset_counts()
+    seconds, images = [], None
+    for i, seed in enumerate((0, 1, 2, 3)):
+        before = _counts()
+        torch.cuda.synchronize()
+        tr = time.perf_counter()
+        with UNetCalls() as n:
+            out = api.inference(manager, **{**kwargs, "seed": seed})
+        dt = time.perf_counter() - tr
+        launches = _delta(_counts(), before)
+        if n.n != STEPS or launches != want:
+            raise AssertionError(f"preprocess: spatial_controlnet_depth seed "
+                                 f"{seed}: {n.n} UNet calls, launches "
+                                 f"{launches}; expected {STEPS}, {want}")
+        if out["images"].shape != (1, side, side, 3):
+            raise AssertionError(f"preprocess: images {out['images'].shape}")
+        if seed == 0:
+            images = out["images"]
+        if i:
+            seconds.append(dt)
+        log(f"preprocess: spatial_controlnet_depth seed {seed}: {dt:.3f} s"
+            f"{' (warm-up)' if i == 0 else ''}, {n.n} UNet calls, launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+    direct = _counts()
+    totals = ctx.setdefault("launches", {})
+    for k, v in direct.items():
+        totals[k] = totals.get(k, 0) + v
+    if not (direct["K1"] and direct["K2"]):
+        raise AssertionError("preprocess: K1 or K2 never launched")
+    p50 = float(np.median(seconds))
+    ctx.setdefault("p50", {})["spatial_controlnet_depth"] = p50
+    before = _counts()
+    with UNetCalls() as n:
+        status, body, http_s = _http(port, "/generate", payload)
+    launches = _delta(_counts(), before)
+    if status != 200 or n.n != STEPS or launches != want:
+        raise AssertionError(f"preprocess: POST /generate {status}, {n.n} "
+                             f"UNet calls, launches {launches}")
+    if base64.b64decode(body["images"][0]) != native.encode_png(images[0]):
+        raise AssertionError(
+            "preprocess: the POST's PNG differs from inference()'s "
+            f"(max abs {np.abs(_pngs(body)[0].astype(int) - images[0]).max()}"
+            f")")
+    _, plain, _ = _http(port, "/generate", base)
+    moved = int(np.abs(_pngs(plain)[0].astype(int) - images[0]).max())
+    if moved == 0:
+        raise AssertionError("preprocess: the Depth unit left the spatial "
+                             "image as it was")
+    log(f"preprocess: spatial_controlnet_depth p50 {p50:.4f} s/image "
+        f"(inference(), after one warm-up); POST /generate {http_s:.3f} s, "
+        f"its PNG inference()'s bit for bit; max abs {moved} from the "
+        f"spatial image on uint8; launches a request {want}")
+    depth_fn = manager.get_preprocessor("Depth")
+    depth_ms = _event_ms(lambda: depth_fn(photo))
+    log(f"preprocess: the Depth detector alone (DPT-Large, 512^2 -> 384^2 "
+        f"-> 512^2): {depth_ms:.3f} ms on the card (CUDA events)")
+    profile_request(lambda: torch.from_numpy(depth_fn(photo)),
+                    "Depth detector", depth_ms / 1e3, host_ops=False)
+
+    # 5. /preprocess
+    for name, opts in (("Canny", {}), ("Openpose", {"include_hand": True})):
+        status, body, dt = _http(port, "/preprocess", {
+            "image": photo.tolist(), "preprocessor": name, "options": opts})
+        want_map = manager.get_preprocessor(name)(photo, **opts)
+        want_png = native.encode_png(np.round(want_map * 255).astype(
+            np.uint8))
+        if status != 200 or base64.b64decode(body["image"]) != want_png:
+            raise AssertionError(f"preprocess: POST /preprocess {name}: "
+                                 f"{status} {str(body)[:200]}")
+        log(f"preprocess: POST /preprocess {name} {opts}: {dt:.3f} s, its "
+            f"PNG the in-process detector's bit for bit")
+    server.shutdown()
+    server.server_close()
+    profile_request(lambda: torch.from_numpy(api.inference(
+        manager, **{**kwargs, "seed": 99})["images"]),
+        "spatial_controlnet_depth", p50, host_ops=False)
+    cudnn.allow_tf32 = False
+    del manager
+    torch.cuda.empty_cache()
+
+
 LORA_RANK = 8
 TI_WORD = "sksstyle"  # the textual-inversion file's trigger word
 PLUS_DEPTH = 4  # the published ip-adapter-plus_sd15's Resampler layers
@@ -3494,10 +3919,9 @@ def _weights(ctx, root):
                        plain)
     log(f"weights: the loaded tree with the init's 1x1-kernel strides gives "
         f"{'the same' if same else 'another'} uint8 image")
-    for kind, p in (("weights_spatial", pipe),
-                    ("weights_spatial_init_strides", pipe_i)):
-        defer_profile(ctx, lambda p=p: p.txt2img(c1, gen, seed=99,
-                                                 region_biases=rb1), kind)
+    defer_profile(ctx, lambda: pipe.txt2img(c1, gen, seed=99,
+                                            region_biases=rb1),
+                  "weights_spatial")
     log(f"weights: p50 s/image after one warm-up: " + ", ".join(
         f"{k} {ctx['p50'][k]:.4f}" for k in (
             "weights_spatial", "weights_pallas2", "weights_lora_ti",
@@ -3705,7 +4129,7 @@ def main(argv=None) -> int:
     run = {"build": phase_build, "kernels": phase_kernels,
            "tiny": phase_tiny, "main": phase_main, "modes": phase_modes,
            "weights": phase_weights,
-           "app": phase_app}
+           "app": phase_app, "preprocess": phase_preprocess}
     t_all = ctx["t_start"] = time.perf_counter()
     for name in PHASES:
         if name not in phases:

@@ -15,24 +15,28 @@ request the JAX package refuses gets the same error here.
 
 Registered checkpoint directories (diffusers layout), LoRAs,
 textual-inversion embeddings and the weight files of units, the image
-tower and the face networks are converted by ``convert/`` onto the
-manager's device. A unit's model name that is not an existing path gets
-random weights from the port's own generator (seed 0): a ControlNet with
-zero heads (a no-op, as in the JAX package) and a random T2I-Adapter
-(other values than the JAX package's ``PRNGKey(0)`` init). An IP-Adapter
-name gets the JAX package's own synthetic state dict
-(``ip_adapter.random_state_dict``, numpy, the same weights); the
-CLIP-vision tower and the face networks (when registered without a path)
-random weights from the port's generator.
-
-Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item where the JAX package would first use them: the control
-preprocessors (item 20).
+tower, the face networks and the control preprocessors are converted by
+``convert/`` and the models' converters onto the manager's device. A unit's
+model name that is not an existing path gets random weights from the
+port's own generator (seed 0): a ControlNet with zero heads (a no-op, as in
+the JAX package) and a random T2I-Adapter (other values than the JAX
+package's ``PRNGKey(0)`` init). An IP-Adapter name gets the JAX package's
+own synthetic state dict (``ip_adapter.random_state_dict``, numpy, the
+same weights); the CLIP-vision tower and the face networks (when
+registered without a path) random weights from the port's generator. A
+control preprocessor without weights draws its published-layout state dict
+from its model's ``random_state_dict`` (seed 0), so its values differ from
+the JAX package's ``PRNGKey(0)`` init; its networks run in fp32 on the
+manager's device whatever the manager's dtype, as the JAX package builds
+them in ``jnp.float32``, with the card's convolutions and matmuls off TF32
+and on deterministic algorithms whatever the process-wide settings
+(``models._nets.strict_fp32``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
@@ -68,14 +72,6 @@ from ..pipeline.pipeline import DenoiseExtras, StableDiffusionTorch, on_device
 from ..text.tokenizer import load_tokenizer
 from ..utils.profiling import PhaseTimer, Watchdog
 
-_PREPROCESSORS = "the control preprocessors (ROADMAP item 20)"
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: not ported to the PyTorch package "
-                               f"yet")
-
-
 @dataclasses.dataclass
 class ControlNetUnit:
     """One ControlNet unit (reference multi-unit editor,
@@ -87,8 +83,7 @@ class ControlNetUnit:
     guidance_start: float = 0.0
     guidance_end: float = 1.0
     guess_mode: bool = False
-    # a detector applied to ``image`` first, with its options (ROADMAP
-    # item 20)
+    # a detector applied to ``image`` first, with its options
     preprocessor: Optional[str] = None
     preprocessor_options: Optional[dict] = None
 
@@ -150,6 +145,7 @@ class ModelManager:
         # registered
         self._face_cfg = self._detector_spec = self._image_encoder_cfg = None
         self._face_path = self._image_encoder_path = None
+        self._preproc_spec: Dict[str, Tuple] = {}
 
     def register(self, name: str, path: str,
                  model_cfg: Optional[ModelConfig] = None):
@@ -397,10 +393,147 @@ class ModelManager:
 
     def register_preprocessor(self, name: str, path: Optional[str] = None,
                               cfg=None, detect_resolution: int = 368):
-        raise _not_ported(_PREPROCESSORS)
+        """Configure a model-based control preprocessor: a weight path in
+        its published layout, an architecture config (read by "Depth",
+        "Normal Map", "Semantic Segmentation" and "Zoedepth"; the random
+        weights' shape without a path), and Openpose's detect resolution.
+        The other names build their published width. A sub-net
+        ("Openpose (hand)", "Openpose (face)") drops its parent's built
+        closure, so the next ``get_preprocessor`` picks up its weights."""
+        self._preproc_spec[name] = (path, cfg, detect_resolution)
+        self._adapters.pop(f"preproc::{name}", None)
+        if "(" in name:
+            self._adapters.pop(f"preproc::{name.split(' (', 1)[0]}", None)
+
+    def _detector(self, module, path, convert, cfg=None):
+        """A detector's parameters on the manager's device, fp32: converted
+        from ``path``, or from ``module.random_state_dict`` (at ``cfg``, or
+        the published width for a network without one) without it."""
+        if cfg is None:
+            sd = load_state_dict(path) if path else \
+                module.random_state_dict(seed=0)
+            return convert(sd, device=self.device)
+        sd = load_state_dict(path) if path else \
+            module.random_state_dict(cfg, seed=0)
+        return convert(sd, cfg, device=self.device)
 
     def get_preprocessor(self, name: str):
-        raise _not_ported(_PREPROCESSORS)
+        """Callable (H, W, 3) image -> (H, W, 3) control image in [0, 1].
+
+        The pure-image detectors come from
+        ``ops.preprocess.NATIVE_PREPROCESSORS``; a model-based name builds
+        its network at first use (the registered weights, or random
+        published-layout weights), runs it in fp32 without TF32 on
+        deterministic algorithms, and is cached by name."""
+        from ..models import (dpt, hed, lineart, lineart_anime, mlsd,
+                              normalbae, openpose, pidinet, upernet,
+                              zoedepth)
+        from ..models._nets import in_fp32
+        from ..ops import preprocess as pp
+
+        if name in pp.NATIVE_PREPROCESSORS:
+            return pp.NATIVE_PREPROCESSORS[name]
+        key = f"preproc::{name}"
+        if key in self._adapters:
+            return self._adapters[key]
+        path, cfg, detect_res = self._preproc_spec.get(name,
+                                                       (None, None, 368))
+        nnet_cfg = isinstance(cfg, normalbae.NormalBaeConfig)
+        if name == "Normal Map" and (path is not None or nnet_cfg):
+            # NNET, the reference's Normal Map detector; without weights or
+            # a config, the depth-gradient normals over DPT below
+            ncfg = cfg or normalbae.NormalBaeConfig()
+            params = self._detector(normalbae, path, normalbae.convert_nnet,
+                                    ncfg)
+            fn = pp.make_normalbae_preprocessor(
+                params, ncfg,
+                detect_res=detect_res if detect_res != 368 else 512)
+        elif name in ("Depth", "Normal Map"):
+            if name == "Normal Map" and path is None:
+                # the weightless fallback reuses what "Depth" registered
+                path, cfg, detect_res = self._preproc_spec.get(
+                    "Depth", (None, cfg, detect_res))
+            if cfg is None:
+                cfg = dpt.DPTConfig() if path else dpt.DPT_FALLBACK
+            params = self._detector(dpt, path, dpt.convert_dpt, cfg)
+            fn = (pp.make_normal_map_preprocessor(params, cfg)
+                  if name == "Normal Map"
+                  else pp.make_depth_preprocessor(params, cfg))
+        elif name == "Openpose":
+            params = self._detector(openpose, path,
+                                    openpose.convert_openpose_body)
+
+            def _sub(sub_name, convert, draw):
+                def build():
+                    # the live spec: a sub-net registered after this
+                    # closure was built is still picked up
+                    sub_path = self._preproc_spec.get(sub_name, (None,))[0]
+                    sd = load_state_dict(sub_path) if sub_path else \
+                        draw(seed=0)
+                    return convert(sd, device=self.device)
+
+                return build
+
+            fn = pp.make_openpose_preprocessor(
+                params, detect_res,
+                hand_params=_sub("Openpose (hand)",
+                                 openpose.convert_openpose_hand,
+                                 openpose.random_hand_state_dict),
+                face_params=_sub("Openpose (face)",
+                                 openpose.convert_openpose_face,
+                                 openpose.random_face_state_dict))
+        elif name == "Semantic Segmentation":
+            if cfg is None:
+                cfg = upernet.UperNetConfig() if path else \
+                    upernet.UPERNET_FALLBACK
+            params = self._detector(upernet, path, upernet.convert_upernet,
+                                    cfg)
+            fn = pp.make_segmentation_preprocessor(params, cfg)
+        elif name == "Zoedepth":
+            zcfg = cfg or (zoedepth.ZoeDepthConfig() if path
+                           else zoedepth.ZOE_TINY)
+            params = self._detector(zoedepth, path,
+                                    zoedepth.convert_zoedepth, zcfg)
+            fn = pp.make_zoedepth_preprocessor(params, zcfg)
+        elif name == "MLSD":
+            fn = pp.make_mlsd_preprocessor(
+                self._detector(mlsd, path, mlsd.convert_mlsd))
+        elif name in ("Soft Edge", "Scribble (PidiNet)"):
+            scribble = name == "Scribble (PidiNet)"
+            sd = load_state_dict(path) if path else None
+            if sd is not None and "init_block.weight" not in sd.tensors \
+                    and "block1.convs.0.weight" in sd.tensors:
+                # HED-layout weights registered under the PidiNet slot
+                fn = pp.make_hed_preprocessor(
+                    hed.convert_hed(sd, device=self.device),
+                    scribble=scribble)
+            else:
+                params = pidinet.convert_pidinet(
+                    sd if sd is not None else pidinet.random_state_dict(
+                        seed=0), device=self.device)
+                fn = pp.make_pidinet_preprocessor(params, scribble=scribble)
+        elif name in ("Soft Edge (HED)", "Scribble (HED)"):
+            fn = pp.make_hed_preprocessor(
+                self._detector(hed, path, hed.convert_hed),
+                scribble=name == "Scribble (HED)")
+        elif name == "Lineart":
+            fn = functools.partial(lineart.detect_lineart, self._detector(
+                lineart, path, lineart.convert_lineart))
+        elif name == "Lineart (anime)":
+            fn = functools.partial(
+                lineart_anime.detect_lineart_anime, self._detector(
+                    lineart_anime, path, lineart_anime.convert_lineart_anime))
+        elif name == "Instruct Pix2Pix":
+            fn = pp.NATIVE_PREPROCESSORS["None"]  # the raw image
+        else:
+            names = tuple(pp.NATIVE_PREPROCESSORS) + \
+                pp.MODEL_BASED_PREPROCESSORS
+            raise KeyError(f"unknown preprocessor {name!r}; available: "
+                           f"{names}")
+        if name != "Instruct Pix2Pix":
+            fn = in_fp32(fn)
+        self._adapters[key] = fn
+        return fn
 
     def register_image_encoder(self, path: Optional[str] = None, cfg=None):
         """The IP-Adapter image encoder: its config (``CLIPVisionConfig``,
@@ -1015,8 +1148,8 @@ def warmup(manager: ModelManager, configs) -> list:
 
 def _maybe_preprocess(manager: ModelManager, unit) -> np.ndarray:
     """A unit's image in [0, 1]: uint8 maps are divided by 255. A
-    ``preprocessor`` goes to ``manager.get_preprocessor`` (ROADMAP item
-    20)."""
+    ``preprocessor`` goes to ``manager.get_preprocessor``, with the unit's
+    options."""
     if unit.preprocessor:
         fn = manager.get_preprocessor(unit.preprocessor)
         opts = getattr(unit, "preprocessor_options", None)

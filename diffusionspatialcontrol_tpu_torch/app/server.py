@@ -18,22 +18,24 @@ A stdlib HTTP server exposing ``app.api.inference`` as JSON endpoints:
                      x with and without a map); returns per-bucket seconds
   GET  /models     — registered checkpoints
   GET  /samplers   — sampler names of the app's table
+  GET  /preprocessors — the control preprocessors' names
+  POST /preprocess — {"image", "preprocessor", "options"}: one detector
+                     run on its own; returns the control image as base64
+                     PNG
   GET  /health
 
 Every field of the JAX server's ``/generate`` runs here, the speed modes
 (``cfg_tail_frac``, ``deepcache_interval``, ``bottleneck_low_scale``,
-``tgate_gate_frac``) included, but for the control preprocessors and the
-Gradio UI (ROADMAP item 20): ``/preprocessors`` and ``/preprocess`` answer
-501 until they are ported, as does a ControlNet or T2I-Adapter unit that
-names a ``preprocessor``. One worker thread owns the
-device: ``/generate``, ``/warmup`` and the job queue share one lock, so
-requests run one at a time in arrival order. A request that fails answers
-an error (400 for a caller's mistake, 501 for a path not ported yet, 500
-otherwise); none is answered 200 without its images.
+``tgate_gate_frac``) and the units' ``preprocessor`` included. One worker
+thread owns the device: ``/generate``, ``/warmup``, ``/preprocess`` and
+the job queue share one lock, so requests run one at a time in arrival
+order. A request that fails answers an error (400 for a caller's mistake,
+501 for a path not ported yet, 500 otherwise); none is answered 200
+without its images.
 
 CLI: ``python -m diffusionspatialcontrol_tpu_torch.app.server
 --model NAME=DIR | --zoo ROOT | --random-model NAME[:FAMILY[:SEED]]
-[--device cuda|cpu]``.
+[--preprocessor NAME=WEIGHTS] [--device cuda|cpu] [--gradio]``.
 """
 
 from __future__ import annotations
@@ -57,10 +59,6 @@ from .api import (
     inference,
     warmup,
 )
-
-_PREPROCESSORS = ("the control preprocessors are not ported to the PyTorch "
-                  "package yet (ROADMAP item 20)")
-
 
 class GenerationCancelled(RuntimeError):
     """Raised out of a progress callback to abort a running generation."""
@@ -399,13 +397,45 @@ class _Handler(BaseHTTPRequestHandler):
         elif self.path == "/samplers":
             self._json(200, {"samplers": sorted(registry.SAMPLERS)})
         elif self.path == "/preprocessors":
-            self._json(501, {"error": _PREPROCESSORS})
+            from ..ops import preprocess as pp
+
+            self._json(200, {
+                "pure_image": sorted(pp.NATIVE_PREPROCESSORS),
+                "model_based_native": list(pp.NATIVE_MODEL_PREPROCESSORS),
+                "model_based_unavailable": [
+                    n for n in pp.MODEL_BASED_PREPROCESSORS
+                    if n not in pp.NATIVE_MODEL_PREPROCESSORS
+                ],
+            })
         else:
             self._json(404, {"error": "not found"})
 
     def do_POST(self):
         if self.path == "/preprocess":
-            self._json(501, {"error": _PREPROCESSORS})
+            # one detector on its own, so that a client can inspect or
+            # edit a control image
+            try:
+                req = self._read_json()
+                img = _image_field(req["image"])
+                # the detectors' contract: uint8 0..255 RGB (a base64 upload
+                # decodes to 0..255 floats, maybe 2-D; a nested list may be
+                # in [0, 1])
+                if img.ndim == 2:
+                    img = np.stack([img] * 3, axis=-1)
+                if img.max() <= 1.0:
+                    img = img * 255.0
+                img = np.clip(np.round(img), 0, 255).astype(np.uint8)
+                fn = self.manager.get_preprocessor(req["preprocessor"])
+                opts = req.get("options") or {}
+                with self.lock:
+                    out = fn(img, **opts) if opts else fn(img)
+                self._json(200, {"image": _encode_images(
+                    np.round(np.asarray(out) * 255).astype(np.uint8)[None]
+                )[0]})
+            except (ValueError, KeyError, TypeError) as e:
+                self._json(400, {"error": f"{type(e).__name__}: {e}"})
+            except Exception as e:  # noqa: BLE001
+                self._json(500, {"error": f"{type(e).__name__}: {e}"})
             return
         if self.path == "/jobs":
             try:
@@ -480,6 +510,21 @@ def serve(manager: ModelManager, host: str = "127.0.0.1", port: int = 7860,
     return server
 
 
+def launch_gradio(manager: ModelManager, **kwargs):
+    """The Gradio front-end (app/gradio_ui.py), when ``gradio`` is
+    installed."""
+    try:
+        import gradio  # noqa: F401
+    except ImportError as e:
+        raise ImportError(
+            "gradio is not installed; use app.server.serve (JSON HTTP) "
+            "instead"
+        ) from e
+    from .gradio_ui import launch
+
+    return launch(manager, **kwargs)
+
+
 def build_manager_from_args(args) -> ModelManager:
     """argparse namespace -> configured ModelManager (split from main() so
     tests can drive the CLI wiring without binding a port)."""
@@ -552,7 +597,8 @@ def parse_args(argv=None):
                    "smoke runs; families: sd15, sd15-inpaint, sd21, tiny)")
     p.add_argument("--preprocessor", action="append", default=[],
                    metavar="NAME=WEIGHTS",
-                   help="control-preprocessor weights (ROADMAP item 20)")
+                   help="register control-preprocessor weights, e.g. "
+                   "'Depth=/w/dpt.safetensors' (repeatable)")
     p.add_argument("--image-encoder", metavar="WEIGHTS",
                    help="CLIP-vision weights for IP-Adapter embedding "
                    "(without them the tower has random weights)")
@@ -569,7 +615,8 @@ def parse_args(argv=None):
                    help="run the default shape buckets once for every "
                    "registered model before accepting requests")
     p.add_argument("--gradio", action="store_true",
-                   help="the Gradio UI (ROADMAP item 20)")
+                   help="launch the Gradio Blocks UI instead of the JSON "
+                   "HTTP server (requires gradio)")
     return p.parse_args(argv)
 
 
@@ -577,14 +624,13 @@ def main(argv=None):
     """CLI: ``python -m diffusionspatialcontrol_tpu_torch.app.server ...``
     (the reference's ``python app.py`` launch, source/app.py:3063)."""
     args = parse_args(argv)
-    if args.gradio:
-        raise NotImplementedError(
-            "the Gradio UI is not ported to the PyTorch package yet (it "
-            "needs the control preprocessors, ROADMAP item 20)")
     manager = build_manager_from_args(args)
     if args.warmup:
         for name in list(manager._dirs):
             warmup(manager, default_warmup_configs(name))
+    if args.gradio:
+        launch_gradio(manager, server_name=args.host, server_port=args.port)
+        return
     print(f"serving on http://{args.host}:{args.port}", flush=True)
     serve(manager, host=args.host, port=args.port, block=True)
 

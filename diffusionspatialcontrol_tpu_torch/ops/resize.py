@@ -122,3 +122,37 @@ def resize_latents(latents: torch.Tensor, new_h: int, new_w: int,
     b, h, w, c = latents.shape
     return resize(latents, (b, new_h, new_w, c),
                   _MODES.get(mode, "linear"), antialias)
+
+
+def _ac_axis(n_in: int, n_out: int):
+    """The JAX package's align-corners taps of one axis: low and high
+    indices and the float32 fraction, from float64 coordinates."""
+    if n_out == 1 or n_in == 1:
+        lo = np.zeros(n_out, np.int64)
+        return lo, lo, np.zeros(n_out, np.float32)
+    coord = np.arange(n_out) * (n_in - 1) / (n_out - 1)
+    lo = np.floor(coord).astype(np.int64)
+    hi = np.minimum(lo + 1, n_in - 1)
+    return lo, hi, (coord - lo).astype(np.float32)
+
+
+def resize_bilinear_align_corners(x: torch.Tensor, out_h: int,
+                                  out_w: int) -> torch.Tensor:
+    """Bilinear resize of NHWC ``x`` with torch's ``align_corners=True``
+    sampling (output i reads input i (n_in - 1) / (n_out - 1)), computed as
+    the JAX package's ``resize_bilinear_align_corners`` computes it: rows
+    blended along x, then along y, in float32. The MLSD, NormalBae and
+    ZoeDepth decoders upsample this way."""
+    b, h, w, c = x.shape
+    if (h, w) == (out_h, out_w):
+        return x
+    dev = x.device
+    ylo, yhi, yf = (torch.from_numpy(a).to(dev) for a in _ac_axis(h, out_h))
+    xlo, xhi, xf = (torch.from_numpy(a).to(dev) for a in _ac_axis(w, out_w))
+    xf32 = x.float()
+    xw = xf[None, None, :, None]
+    top_rows, bot_rows = xf32[:, ylo], xf32[:, yhi]
+    top = top_rows[:, :, xlo] * (1 - xw) + top_rows[:, :, xhi] * xw
+    bot = bot_rows[:, :, xlo] * (1 - xw) + bot_rows[:, :, xhi] * xw
+    yw = yf[None, :, None, None]
+    return (top * (1 - yw) + bot * yw).to(x.dtype)

@@ -126,8 +126,8 @@ def encode_png(rgb: np.ndarray, compression: int = 6) -> bytes:
 
 def make_grid(images: np.ndarray, cols: int = 4) -> np.ndarray:
     """(N, H, W, 3) uint8 -> contact sheet (rows*H, cols*W, 3). The JAX
-    binding's surface: neither package calls it yet (the UI of ROADMAP
-    item 20 would show grids)."""
+    binding's surface: neither package calls it (the Gradio UI shows its
+    images as a gallery)."""
     arr = np.ascontiguousarray(images, np.uint8)
     n, h, w, _ = arr.shape
     rows = (n + cols - 1) // cols

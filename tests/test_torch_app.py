@@ -617,9 +617,9 @@ def _units(api, kwargs):
 def _stub_unit_models(m, log, real):
     """Record the manager's unit-model and preprocessor calls and hand the
     pipeline a name in place of each model. With ``real``, the manager's
-    own methods run first (the port: a random model, or the raise for a
-    preprocessor); the JAX package's would build a random model, so its
-    side only records. A model from a path is loaded in both packages."""
+    own methods run first (the port: a random model, or its preprocessor);
+    the JAX package's would build a random model, so its side only
+    records. A model from a path is loaded in both packages."""
     def stub(name, what):
         own = getattr(m, name)
 
@@ -746,8 +746,9 @@ def test_inference_routes_as_jax(kwargs, monkeypatch):
     """Both packages' inference() make the same pipeline calls with the
     same arguments in the same order, and return images of the same shape
     or raise the same error; the speed modes route to the same pipeline
-    method with the same arguments. A unit's preprocessor raises naming
-    item 20, at the manager call where the JAX package would build it. A unit model from a path is
+    method with the same arguments. A unit's preprocessor is fetched from
+    the manager by both packages (the port builds it; both hand the
+    pipeline the stub's image). A unit model from a path is
     loaded by both packages (a file that is no weight file raises the same
     error in both). The unit images the
     extras builders get (fitted to the request's size, or the hires pass's)
@@ -755,11 +756,7 @@ def test_inference_routes_as_jax(kwargs, monkeypatch):
     jarr, tarr = [], []
     jlog, jticks, jout = _run("jax", monkeypatch, kwargs, jarr)
     tlog, tticks, tout = _run("torch", monkeypatch, kwargs, tarr)
-    if tout[0] == "NotImplementedError" and jout[0] == "ok":
-        assert "item 20" in tout[1] and tlog[-1][0] == "get_preprocessor"
-        jlog, jarr = jlog[:len(tlog)], []
-    else:
-        assert tout == jout
+    assert tout == jout
     assert tlog == jlog
     assert tticks == jticks
     assert len(tarr) == len(jarr)
@@ -913,9 +910,11 @@ def test_watchdog_and_progress_cb_stop_a_run(manager):
 
 
 def test_unported_paths_raise_naming_their_item(manager, tmp_path):
-    """What is not ported raises naming its ROADMAP item: a unit's
-    preprocessor (20); the speed modes run (tests/test_torch_speed_modes.py)
-    and no error names their item (18). Weights from a path load
+    """What is not ported raises naming its ROADMAP item (22, multi-GPU:
+    tests/test_torch_app.py's grid test); a unit's preprocessor runs
+    (tests/test_torch_preprocess.py) and no error names its item (20), nor
+    do the speed modes' (18; tests/test_torch_speed_modes.py). Weights
+    from a path load
     (tests/test_torch_convert.py, test_torch_lora_ti.py): a path that holds
     no weight file raises what the JAX package raises there, at the first
     use of what it names. A unit model by name runs, and so do the
@@ -924,9 +923,9 @@ def test_unported_paths_raise_naming_their_item(manager, tmp_path):
     base = dict(prompt=PROMPT, model="tiny", steps=2, width=64, height=64,
                 dtype=torch.float32)
     img = np.zeros((64, 64, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        tapi.inference(manager, **{**base, "controlnet_units": [
-            tapi.ControlNetUnit("Canny", img, preprocessor="Canny")]})
+    out = tapi.inference(manager, **{**base, "controlnet_units": [
+        tapi.ControlNetUnit("Canny", img, preprocessor="Canny")]})
+    assert out["images"].shape == (1, 64, 64, 3)
     out = tapi.inference(manager, **{**base, "tgate_gate_frac": 0.5,
                                      "sampler": "Euler"})
     assert out["images"].shape == (1, 64, 64, 3)
@@ -958,10 +957,10 @@ def test_unported_paths_raise_naming_their_item(manager, tmp_path):
                  disk.get_face_aligner):
         with pytest.raises(FileNotFoundError):
             call()
-    for call in (lambda: manager.get_preprocessor("Canny"),
-                 lambda: manager.register_preprocessor("Depth")):
-        with pytest.raises(NotImplementedError, match="item 20"):
-            call()
+    assert manager.get_preprocessor("Canny")(img).shape == (64, 64, 3)
+    manager.register_preprocessor("Depth", path=str(tmp_path / "dpt.bin"))
+    with pytest.raises(FileNotFoundError):
+        manager.get_preprocessor("Depth")
     with pytest.raises(KeyError, match="not registered"):
         manager.get("nope")
     cn = manager.get_controlnet("Canny", unet)

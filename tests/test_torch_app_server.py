@@ -6,10 +6,11 @@ on the CPU: identical POSTs return identical PNGs, equal to the native
 codec's encoding of a direct ``inference()`` call; the job queue reports
 progress, runs to done and cancels a queued job; ``/warmup`` returns one
 record per config; ControlNet, T2I-Adapter and IP-Adapter units run;
-errors answer 400 (a caller's mistake), 404, 501 (not ported yet) or 500,
-never 200; a server started with ``--model`` and ``--zoo`` serves a
-checkpoint directory. ``_inference_kwargs`` of both packages turn the
-same JSON payloads into equal keyword arguments (no JAX program runs).
+errors answer 400 (a caller's mistake), 404 or 500, never 200 (501, for a
+path not ported yet, answers none of these requests any more); a server
+started with ``--model`` and ``--zoo`` serves a checkpoint directory.
+``_inference_kwargs`` of both packages turn the same JSON payloads into
+equal keyword arguments (no JAX program runs).
 """
 
 import base64
@@ -17,6 +18,7 @@ import dataclasses
 import io
 import json
 import os
+import sys
 import urllib.error
 import urllib.request
 
@@ -160,7 +162,7 @@ def test_warmup_returns_one_record_per_config(server):
      "latent_preview must be bool"),
     ("controlnet unit", {**BASE, "controlnet_units": [
         {"model": "Canny", "image": np.zeros((8, 8, 3)).tolist(),
-         "preprocessor": "Canny"}]}, 501, "item 20"),
+         "preprocessor": "Cany"}]}, 400, "unknown preprocessor 'Cany'"),
     ("ip-adapter unit", {**BASE, "ip_adapter_units": [
         {"model": os.path.abspath(__file__), "image_embeds": [0.0] * 8}]},
      500, "UnpicklingError"),
@@ -263,9 +265,10 @@ def test_other_endpoints(server):
     status, out = _call(srv, "/samplers")
     assert status == 200 and len(out["samplers"]) == 82
     assert "DPM++ 2M Karras" in out["samplers"]
-    for path, payload in (("/preprocessors", None), ("/preprocess", {})):
-        status, out = _call(srv, path, payload)
-        assert status == 501 and "item 20" in out["error"]
+    status, out = _call(srv, "/preprocessors")
+    assert status == 200 and "Canny" in out["pure_image"]
+    status, out = _call(srv, "/preprocess", {})
+    assert status == 400 and out["error"] == "KeyError: 'image'"
     assert _call(srv, "/nowhere")[0] == 404
     assert _call(srv, "/nowhere", {})[0] == 404
 
@@ -376,7 +379,10 @@ def test_result_payload_and_warmup_configs_equal_jax():
     _same(got, want)
 
 
-def test_cli_builds_a_cpu_manager_and_refuses_unported_flags():
+def test_cli_builds_a_cpu_manager_and_refuses_unported_flags(monkeypatch):
+    """The CLI builds a CPU manager; ``--preprocessor`` registers weights
+    and ``--gradio`` without ``gradio`` raises the JAX package's
+    ImportError (no flag is unported any more)."""
     args = tserver.parse_args(["--random-model", "t:tiny:3", "--device",
                                "cpu", "--dtype", "f32"])
     m = tserver.build_manager_from_args(args)
@@ -403,11 +409,17 @@ def test_cli_builds_a_cpu_manager_and_refuses_unported_flags():
         with pytest.raises(SystemExit, match=text):
             tserver.build_manager_from_args(tserver.parse_args(
                 ["--random-model", "t:tiny", "--device", "cpu", *flags]))
-    with pytest.raises(NotImplementedError, match="item 20"):
+    m = tserver.build_manager_from_args(tserver.parse_args(
+        ["--random-model", "t:tiny", "--device", "cpu",
+         "--preprocessor", "Depth=dpt.safetensors"]))
+    assert m._preproc_spec == {"Depth": ("dpt.safetensors", None, 368)}
+    with pytest.raises(SystemExit, match="expects NAME=WEIGHTS"):
         tserver.build_manager_from_args(tserver.parse_args(
             ["--random-model", "t:tiny", "--device", "cpu",
-             "--preprocessor", "Depth=dpt.safetensors"]))
-    with pytest.raises(NotImplementedError, match="item 20"):
+             "--preprocessor", "Depth"]))
+    monkeypatch.setitem(sys.modules, "gradio", None)
+    with pytest.raises(ImportError, match="gradio is not installed; use "
+                       "app.server.serve"):
         tserver.main(["--gradio", "--random-model", "t:tiny",
                       "--device", "cpu"])
     for bad in (["--random-model", "t:sdxl", "--device", "cpu"],

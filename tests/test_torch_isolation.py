@@ -50,6 +50,15 @@ CONVERT = tuple(f"diffusionspatialcontrol_tpu_torch.convert.{m}" for m in (
 # DAAM heatmaps (the speed modes live in modules the probe already loads)
 INTROSPECT = ("diffusionspatialcontrol_tpu_torch.introspect",
               "diffusionspatialcontrol_tpu_torch.introspect.daam")
+# the control preprocessors, their networks and the Gradio UI (which imports
+# gradio only when it builds the UI)
+PREPROCESS = tuple(f"diffusionspatialcontrol_tpu_torch.{m}" for m in (
+    "ops.preprocess", "ops.cv", "models._nets", "models.hed",
+    "models.pidinet", "models.lineart", "models.lineart_anime",
+    "models.mlsd", "models.dpt", "models.openpose", "models.upernet",
+    "models.normalbae", "models.zoedepth", "app.gradio_ui"))
+# what the card's machine does not have: none of it at import time
+ABSENT_ON_THE_CARD = ("cv2", "PIL", "transformers", "gradio")
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -60,21 +69,37 @@ for name in names:
 print(json.dumps({"modules": names, "loaded": sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "diffusionspatialcontrol_tpu",
-                           "safetensors"))}))
+                           "safetensors")), "absent": sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("cv2", "PIL", "transformers", "gradio"))}))
 """
 
 
-def test_importing_every_port_module_loads_no_jax():
+@pytest.fixture(scope="module")
+def probe():
+    """Every port module imported in a fresh interpreter: their names and
+    the modules of the packages that must stay out."""
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120,
                          check=True)
-    result = json.loads(out.stdout.strip().splitlines()[-1])
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_importing_every_port_module_loads_no_jax(probe):
+    result = probe
     assert len(result["modules"]) >= 20
-    assert set(APP_LAYER + UNITS + IP_ADAPTER + CONVERT + INTROSPECT) <= \
-        set(result["modules"])
+    assert set(APP_LAYER + UNITS + IP_ADAPTER + CONVERT + INTROSPECT
+               + PREPROCESS) <= set(result["modules"])
     assert result["loaded"] == []
+
+
+def test_importing_every_port_module_loads_no_cv2_pil_transformers_gradio(
+        probe):
+    """The card's machine has none of them; the Gradio UI and base64 image
+    inputs import theirs at first use."""
+    assert probe["absent"] == []
 
 
 def _imported_roots(path: Path):
@@ -100,6 +125,34 @@ def test_source_imports_neither_jax_nor_the_jax_package(path):
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_does_not_import_the_safetensors_package(path):
     assert "safetensors" not in _imported_roots(path)
+
+
+def _module_level_roots(path: Path):
+    """The top-level packages a module imports when it is imported: its
+    module-level statements (and the bodies of module-level ``try``/``if``),
+    not its functions'."""
+    roots = set()
+    todo = list(ast.parse(path.read_text(), str(path)).body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+        elif isinstance(node, (ast.Try, ast.If)):
+            todo += node.body + node.orelse + getattr(node, "finalbody", [])
+            todo += [s for h in getattr(node, "handlers", []) for s in h.body]
+    return roots
+
+
+@pytest.mark.parametrize("path", sorted(
+    [ROOT / "chip_smoke.py", *PACKAGE.rglob("*.py")], key=str),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_no_package_the_card_lacks_at_import_time(path):
+    """cv2 and transformers nowhere; PIL and gradio only inside the
+    functions that need them."""
+    assert not _module_level_roots(path) & set(ABSENT_ON_THE_CARD)
+    assert not _imported_roots(path) & {"cv2", "transformers"}
 
 
 def test_chip_smoke_without_a_card_fails_and_prints_no_result():
