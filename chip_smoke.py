@@ -124,7 +124,21 @@ result line:
    ``/warmup``, with exact UNet calls and launches; the HTTP, direct and
    pipeline p50s side by side, and one HTTP request profiled by its
    kernels;
-8. preprocess: the control preprocessors. Every detector network at the
+8. multi: data parallelism on the one card, SD1.5 at full width and
+   main's spatial request: one NCCL rank in this process runs
+   ``sample_spmd(check_collectives=True)`` (400 all-reduces, K1 and K2 400
+   launches) against ``txt2img`` on fp32 latents within 1e-3; then two
+   gloo ranks started with spawn (NCCL refuses two ranks on one device)
+   run a mapped 2 prompts x 2 seeds grid through ``generate_grid(mesh=...)``
+   against the same grid in one process (fp32, within 1e-3; each rank's
+   draws the whole grid's rows bit for bit; its calls, launches and
+   collectives exact), ``inference()`` of that grid sent by rank 0 to rank
+   1 (uint8 deviations from the direct call printed), and one POST
+   /generate of it to rank 0's server with rank 1 following (the PNGs
+   rank 0's ``inference()`` images bit for bit); the grid's p50 on the
+   mesh beside one process, and one request's 400 all-reduces alone. With
+   several cards visible, the ranks are one NCCL rank a card instead;
+9. preprocess: the control preprocessors. Every detector network at the
    small config of the CPU tests, card against CPU (within 1e-4 of the
    output's largest value); every network at its published width (DPT-
    Large, ZoeDepth's BEiT-L, UperNet-ConvNeXt-T, NNET on EfficientNet-B5,
@@ -169,7 +183,7 @@ import numpy as np
 import torch
 
 PHASES = ("build", "kernels", "tiny", "main", "modes", "weights", "app",
-          "preprocess")
+          "multi", "preprocess")
 
 PROMPT = "a red cat sitting on a wooden bench, a blue bird flying"
 NEG = "bad quality, low quality, jpeg artifact, cropped"
@@ -2379,7 +2393,6 @@ def ip_gate_cache_launches(unet_p, cfg, mask, size):
     cross-attention downsamples the mask, as it would without the cache),
     with an empty one (the request's first call) and with the one that call
     filled (every later call)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from diffusionspatialcontrol_tpu_torch.models.unet import (
@@ -2410,8 +2423,7 @@ def ip_gate_cache_launches(unet_p, cfg, mask, size):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             unet_apply(unet_p, cfg.unet, x, t, c)
             torch.cuda.synchronize()
-        return sum(e.count for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
+        return sum(n for _, n in device_kernels(prof).values())
 
     uncached = launches(dataclasses.replace(cond,
                                             ip_mask_cache=KeepsNothing()))
@@ -3027,8 +3039,9 @@ def phase_app(ctx):
     log(f"app: /warmup of {len(configs)} configs in {wdt:.3f} s: "
         f"{out['results']}")
 
+    launches = ctx.setdefault("launches", {})
     for k, v in served.items():
-        ctx.setdefault("launches", {})[k] = ctx["launches"].get(k, 0) + v
+        launches[k] = launches.get(k, 0) + v
     log(f"app: launches of the HTTP requests "
         f"{ {k: v for k, v in served.items() if v} }; requests served and checked in "
         f"{time.perf_counter() - t_phase:.1f} s")
@@ -3039,6 +3052,350 @@ def phase_app(ctx):
     server.server_close()
     del pipe, manager
     torch.cuda.empty_cache()
+
+
+# phase multi: data parallelism (mesh, explicit-SPMD sampler, grids over
+# ranks): one NCCL rank in this process, then ranks started with spawn: two
+# gloo ranks on one card (NCCL refuses two ranks on one device), or one
+# NCCL rank a card where several are visible
+MULTI_PROMPTS = [PROMPT, "a blue bird flying over a red cat, a wooden bench"]
+MULTI_SEEDS = [0, 1]  # the 2 x 2 grid's seeds: one prompt a rank
+MULTI_ROUNDS = 3  # timed runs of each path after one warm-up
+MULTI_TIMEOUT_S = 300  # every collective of the phase, and each wait
+
+
+def _multi_payload(state):
+    """The 2 x 2 mapped grid request of phase multi, as the server's JSON."""
+    return {"prompt": MULTI_PROMPTS, "neg_prompt": NEG, "model": "sd15",
+            "sampler": "DPM++ 2M Karras", "steps": STEPS, "cfg_scale": 7.5,
+            "width": 512, "height": 512, "seed": MULTI_SEEDS,
+            "encoding_mode": "short",
+            "region_state": [_json_state(state)] * 2}
+
+
+def _multi_rank(rank, world, backend, path, results, control):
+    """One of phase multi's ranks, started with spawn: puts ("done", rank, findings) or ("error", rank, traceback) on
+    ``results``; rank 0 also ("port", 0, (port, images)) once its server
+    is up, and stops it when ``control`` says the POST is done."""
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        with torch.inference_mode():
+            out = _multi_rank_run(rank, world, backend, path, results,
+                                  control)
+        results.put(("done", rank, out))
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        import traceback
+
+        results.put(("error", rank, traceback.format_exc()))
+
+
+def _multi_rank_run(rank, world, backend, path, results, control):
+    import collections
+    import datetime
+
+    import torch.distributed as dist
+
+    from diffusionspatialcontrol_tpu_torch import sd15_config
+    from diffusionspatialcontrol_tpu_torch.app import api
+    from diffusionspatialcontrol_tpu_torch.app.server import (
+        _inference_kwargs,
+    )
+    from diffusionspatialcontrol_tpu_torch.app.server import serve as http
+    from diffusionspatialcontrol_tpu_torch.parallel import mesh as pmesh
+    from diffusionspatialcontrol_tpu_torch.parallel.batched import (
+        generate_grid,
+    )
+    from diffusionspatialcontrol_tpu_torch.pipeline import pipeline as pl
+    from diffusionspatialcontrol_tpu_torch.pipeline.pipeline import to_uint8
+
+    t0 = time.perf_counter()
+    mesh = pmesh.init_data_parallel(
+        backend=backend, device="cuda", init_method=f"file://{path}",
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MULTI_TIMEOUT_S))
+    cfg = sd15_config()
+    manager = api.ModelManager(mesh=mesh)
+    manager.register_random("sd15", cfg, seed=0)
+    pipe = api.StableDiffusionTorch(cfg, manager._cache["sd15"],
+                                    tokenizer=manager._tokenizers["sd15"])
+    out = {"device": str(mesh.device), "backend": mesh.backend,
+           "start_s": time.perf_counter() - t0}
+    state = _masks(512, 512)
+    gen = _gen_for("DPM++ 2M Karras", num_inference_steps=STEPS)
+    gen32 = dataclasses.replace(gen, dtype=torch.float32)
+
+    def grid(g, m, decode):
+        return generate_grid(pipe, MULTI_PROMPTS, MULTI_SEEDS, g,
+                             negative_prompt=NEG, region_states=[state] * 2,
+                             mesh=m, decode=decode)
+
+    # 1. the fp32 mapped grid on the mesh: its draws, UNet calls, launches
+    # and collectives
+    draws, noise = [], pl.initial_noise
+
+    def record(seeds, *a, **k):
+        draws.append((list(seeds), noise(seeds, *a, **k)))
+        return draws[-1][1]
+
+    pl.initial_noise = record
+    _reset_counts()
+    before = collections.Counter(mesh.counts)
+    try:
+        with UNetCalls() as n:
+            lat = grid(gen32, mesh, False)
+    finally:
+        pl.initial_noise = noise
+    out.update(calls=n.n, launches=_counts(),
+               collectives=dict(mesh.counts - before))
+    all_seeds = [s for _ in MULTI_PROMPTS for s in MULTI_SEEDS]
+    rows = mesh.rows(len(all_seeds))
+    whole = noise(all_seeds, (64, 64, 4), pipe.device)
+    out["draws_equal"] = (len(draws) == 1 and draws[0][0] == all_seeds[rows]
+                          and torch.equal(draws[0][1], whole[rows]))
+    if rank == 0:  # 2. the same grid in one process
+        out["grid_err"] = check_close(
+            f"multi: the {world}-rank fp32 grid against one process", lat,
+            grid(gen32, None, False), rtol=1e-3, atol=1e-3)
+
+    # 3. times: the bf16 grid as served (decoded, uint8 on the host) on the
+    # mesh and in one process; one request's all-reduces alone
+    def timed(m):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        to_uint8(grid(gen, m, True)).cpu()
+        return time.perf_counter() - t
+
+    out["mesh_s"] = [timed(mesh) for _ in range(MULTI_ROUNDS + 1)][1:]
+    sums = torch.zeros(3, device=mesh.device)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(PER_UNET * STEPS):
+        mesh.all_reduce(sums)
+    torch.cuda.synchronize()
+    out["allreduce_s"] = time.perf_counter() - t
+    if rank == 0:
+        out["one_s"] = [timed(None) for _ in range(MULTI_ROUNDS + 1)][1:]
+
+    # 4. inference() on the mesh (rank 0 sends, rank 1 follows) against the
+    # direct call in one process; 5. the POST to rank 0's server
+    if rank == 0:
+        kwargs = _inference_kwargs(_multi_payload(state))
+        t = time.perf_counter()
+        images = api.inference(manager, **kwargs)["images"]
+        out["inference_s"] = time.perf_counter() - t
+        solo = api.ModelManager()  # the same models, no mesh
+        solo._dirs, solo._cache, solo._tokenizers = (
+            manager._dirs, manager._cache, manager._tokenizers)
+        direct = api.inference(solo, **kwargs)["images"]
+        dev = np.abs(images.astype(int) - direct.astype(int))
+        out.update(inference_max=int(dev.max()),
+                   inference_share=float((dev > 0).mean()),
+                   inference_shape=images.shape)
+        server = http(manager, port=0, block=False)
+        try:
+            results.put(("port", 0, (server.server_address[1], images)))
+            control.get(timeout=MULTI_TIMEOUT_S)
+        finally:
+            server.shutdown()
+            server.server_close()
+            api.stop_followers(manager)
+    else:
+        out["followed"] = api.follow_requests(manager)
+    dist.destroy_process_group()
+    return out
+
+
+def phase_multi(ctx):
+    """Data parallelism on the card, SD1.5 at full width (random bf16
+    weights from seed 0), the spatial request's 512^2, 25 DPM++ 2M Karras
+    steps, CFG 7.5 and two-phrase map:
+
+    1. one NCCL rank in this process: ``sample_spmd(check_collectives=
+       True)`` against ``txt2img`` on the same seed, fp32 latents (TF32
+       off) within 1e-3, exactly 400 all-reduces (16 mapped
+       cross-attentions x 25 UNet calls), one all-gather, K1 400 and K2
+       400 launches, and the device time of one request's 400 all-reduces
+       alone (CUDA events);
+    2. two gloo ranks on one card (started with spawn; NCCL refuses two
+       ranks on one device), or one NCCL rank a card where several cards
+       are visible, each with its own ``ModelManager``: the fp32
+       2 prompts x 2 seeds mapped grid through ``generate_grid(mesh=...)``
+       against the same grid in one process (within 1e-3), each rank's
+       draws the whole grid's rows bit for bit, its UNet calls, launches
+       (K1 400, K2 400 a rank) and collectives (400 all-reduces, one
+       all-gather); the bf16 grid's p50 on the mesh beside one process's,
+       and 400 all-reduces alone (host clock: gloo copies a CUDA tensor
+       through the host, so these times are recorded, not judged);
+       ``inference()`` of the grid on rank 0, which sends it to rank 1,
+       against a direct call in one process (uint8 deviations printed);
+       and one POST /generate of that grid to rank 0's server while rank 1
+       follows, whose PNGs must be rank 0's ``inference()`` images bit for
+       bit.
+
+    The ``kernels`` line counts the launches of the NCCL rank's request and
+    of both ranks' fp32 grid."""
+    import collections
+    import datetime
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from diffusionspatialcontrol_tpu_torch import GenerationConfig, sd15_config
+    from diffusionspatialcontrol_tpu_torch.models.factory import (
+        init_pipeline_params,
+    )
+    from diffusionspatialcontrol_tpu_torch.parallel import mesh as pmesh
+    from diffusionspatialcontrol_tpu_torch.parallel.spmd import sample_spmd
+    from diffusionspatialcontrol_tpu_torch.pipeline.pipeline import (
+        StableDiffusionTorch,
+    )
+    from diffusionspatialcontrol_tpu_torch.text.tokenizer import load_tokenizer
+
+    cfg = sd15_config()
+    params = ctx.get("sd15_params")
+    if params is None:
+        params = _with_text_bias(init_pipeline_params(0, cfg, torch.bfloat16),
+                                 0)
+    pipe = StableDiffusionTorch(cfg, params, tokenizer=load_tokenizer())
+    state = _masks(512, 512)
+    c1, ids1 = pipe.encode_prompt([PROMPT], [NEG], clip_skip=2)
+    rb1 = pipe.encode_region([state], ids1, height=512, width=512)
+    gen32 = GenerationConfig(height=512, width=512,
+                             num_inference_steps=STEPS, guidance_scale=7.5,
+                             sampler="dpmpp_2m", schedule="karras",
+                             dtype=torch.float32)
+    spatial = want_launches(cfg, 512, STEPS, True, "xla")
+    allreduces = PER_UNET * STEPS
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_multi_")
+    totals = collections.Counter()
+    try:
+        # 1. one NCCL rank
+        mesh = pmesh.init_data_parallel(
+            device="cuda", init_method=f"file://{tmp}/nccl", rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=MULTI_TIMEOUT_S))
+        try:
+            _reset_counts()
+            with UNetCalls() as n:
+                lat = sample_spmd(pipe, c1, gen32, [0], mesh,
+                                  region_biases=rb1, check_collectives=True)
+            launches, issued = _counts(), dict(mesh.counts)
+            totals.update(launches)
+            if mesh.backend != "nccl" or n.n != STEPS or \
+                    launches != spatial or issued != {
+                        "all_reduce": allreduces, "all_gather": 1}:
+                raise AssertionError(
+                    f"multi: NCCL rank: {mesh.backend}, {n.n} UNet calls, "
+                    f"launches {launches}, collectives {issued}")
+            err = check_close("multi: NCCL rank against txt2img", lat,
+                              pipe.txt2img(c1, gen32, seed=0,
+                                           region_biases=rb1, decode=False),
+                              rtol=1e-3, atol=1e-3)
+
+            sums = torch.zeros(3, device=mesh.device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            mesh.all_reduce(sums)
+            start.record()
+            for _ in range(allreduces):
+                mesh.all_reduce(sums)
+            end.record()
+            end.synchronize()
+            log(f"multi: one NCCL rank: sample_spmd {n.n} UNet calls, "
+                f"collectives {issued}, "
+                f"launches { {k: v for k, v in launches.items() if v} }; "
+                f"fp32 latents within {err:.3g} of txt2img (bound 1e-3); "
+                f"{allreduces} all-reduces of 3 fp32 alone "
+                f"{start.elapsed_time(end):.3f} ms on CUDA events "
+                f"(card: {card_line()})")
+        finally:
+            dist.destroy_process_group()
+
+        # 2. two gloo ranks on one card, or one NCCL rank a card
+        cards = torch.cuda.device_count()
+        world, backend = (2, "gloo") if cards == 1 else (cards, "nccl")
+        t0 = time.perf_counter()
+        mp = multiprocessing.get_context("spawn")
+        results, control = mp.Queue(), mp.Queue()
+        procs = [mp.Process(target=_multi_rank,
+                            args=(r, world, backend, f"{tmp}/ranks", results,
+                                  control))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        try:
+            ranks, post = {}, None
+            while len(ranks) < world:
+                kind, r, got = results.get(timeout=MULTI_TIMEOUT_S)
+                if kind == "error":
+                    raise AssertionError(f"multi: rank {r} failed:\n{got}")
+                if kind == "port":
+                    port, images = got
+                    status, body, dt = _http(port, "/generate",
+                                             _multi_payload(state))
+                    control.put("done")
+                    if status != 200:
+                        raise AssertionError(f"multi: POST {status} {body}")
+                    post = (_pngs(body), images, dt)
+                    continue
+                ranks[r] = got
+            for p in procs:
+                p.join(timeout=60)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=10)
+        grid_want = {"all_reduce": allreduces, "all_gather": 1}
+        for r, o in sorted(ranks.items()):
+            totals.update(o["launches"])
+            if o["backend"] != backend or o["calls"] != STEPS or \
+                    o["launches"] != spatial or \
+                    o["collectives"] != grid_want or not o["draws_equal"]:
+                raise AssertionError(
+                    f"multi: rank {r}: {o['backend']}, {o['calls']} UNet "
+                    f"calls, launches {o['launches']}, collectives "
+                    f"{o['collectives']}, draws equal {o['draws_equal']}")
+            log(f"multi: {backend} rank {r} on {o['device']} (ready in "
+                f"{o['start_s']:.1f} s): fp32 2x2 grid, {o['calls']} UNet "
+                f"calls, launches "
+                f"{ {k: v for k, v in o['launches'].items() if v} }, "
+                f"collectives {o['collectives']}, its draws the whole "
+                f"grid's rows bit for bit; bf16 grid on the mesh "
+                f"{[round(s, 4) for s in o['mesh_s']]} s; "
+                f"{allreduces} all-reduces alone {o['allreduce_s']:.4f} s "
+                f"(host clock)")
+        r0 = ranks[0]
+        pngs, images, post_s = post
+        followed = [ranks[r]["followed"] for r in range(1, world)]
+        if r0["inference_shape"] != (4, 512, 512, 3) or \
+                not np.array_equal(pngs, images) or followed != [2] * (
+                    world - 1):
+            raise AssertionError(
+                f"multi: inference() {r0['inference_shape']}, POST PNGs equal "
+                f"{np.array_equal(pngs, images)}, the other ranks followed "
+                f"{followed} requests")
+        log(f"multi: {world} {backend} ranks: fp32 grid within "
+            f"{r0['grid_err']:.3g} of one process (bound 1e-3); bf16 2x2 "
+            f"grid p50 {np.median(r0['mesh_s']):.4f} s on {world} ranks "
+            f"against "
+            f"{np.median(r0['one_s']):.4f} s in one process; inference() on "
+            f"the mesh {r0['inference_s']:.3f} s, against the direct call: "
+            f"max abs {r0['inference_max']} on uint8, "
+            f"{100 * r0['inference_share']:.2f}% of values differ; POST "
+            f"/generate to rank 0's server with the other ranks following "
+            f"{post_s:.3f} s, its PNGs the mesh inference()'s bit for bit; "
+            f"ranks started, checked and ended in "
+            f"{time.perf_counter() - t0:.1f} s (card: {card_line()})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = ctx.setdefault("launches", {})
+    for k, v in totals.items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"multi: launches of the phase's main path "
+        f"{ {k: v for k, v in totals.items() if v} }")
 
 
 DETECT_SIDE = 512  # phase preprocess: the photo, and the request's size
@@ -3998,7 +4355,6 @@ def profile_request(run, kind, p50_s, host_ops=True):
     time to collect and sum. The spatial request is profiled both ways in
     each run, to hold the two busy times together (PERF.md). The log line
     gives the seconds the profile took."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from diffusionspatialcontrol_tpu_torch.pipeline.pipeline import to_uint8
@@ -4010,17 +4366,15 @@ def profile_request(run, kind, p50_s, host_ops=True):
         t0 = time.perf_counter()
         to_uint8(run()).cpu()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(prof)
     if not kernels:
         raise AssertionError(f"profile: {kind}: no device time recorded")
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    count = sum(e.count for e in kernels)
+    busy_ms = sum(us for us, _ in kernels.values()) / 1e3
+    count = sum(n for _, n in kernels.values())
     groups = {g: 0.0 for g, _ in KERNEL_GROUPS}
-    for e in kernels:
-        name = e.key.lower()
-        group = next(g for g, test in KERNEL_GROUPS if test(name))
-        groups[group] += e.self_device_time_total / 1e3
+    for name, (us, _) in kernels.items():
+        group = next(g for g, test in KERNEL_GROUPS if test(name.lower()))
+        groups[group] += us / 1e3
     log(f"profile: {kind}{'' if host_ops else ' (kernels only)'}: device "
         f"busy {busy_ms:.1f} ms = "
         f"{100 * busy_ms / (1e3 * p50_s):.1f}% of the p50 wall "
@@ -4028,10 +4382,27 @@ def profile_request(run, kind, p50_s, host_ops=True):
         f"launches; by group (ms): " + ", ".join(
             f"{g} {t:.1f}" for g, t in groups.items())
         + f"; profiled and summed in {time.perf_counter() - t_all:.1f} s")
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    for e in top:
-        log(f"profile: {kind}:   {e.self_device_time_total / 1e3:8.2f} ms "
-            f"x{e.count:<5d} {e.key[:110]}")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    for name, (us, n) in top:
+        log(f"profile: {kind}:   {us / 1e3:8.2f} ms x{n:<5d} {name[:110]}")
+
+
+def device_kernels(prof):
+    """{kernel name: [device µs, launches]} of a finished torch.profiler
+    run: the device events that ``key_averages`` sums, read from the raw
+    trace, without the host-side event tree that ``key_averages`` builds
+    first (seconds for a request's 50,000 launches)."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_hidden_event() or \
+                e.name() in ("[memory]", "[OutOfMemory]"):
+            continue
+        k = out.setdefault(e.name(), [0.0, 0])
+        k[0] += e.duration_ns() / 1e3
+        k[1] += 1
+    return out
 
 
 KERNEL_LINE = {  # name, source, what "ms" and the other times are per
@@ -4128,8 +4499,8 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     run = {"build": phase_build, "kernels": phase_kernels,
            "tiny": phase_tiny, "main": phase_main, "modes": phase_modes,
-           "weights": phase_weights,
-           "app": phase_app, "preprocess": phase_preprocess}
+           "weights": phase_weights, "app": phase_app,
+           "multi": phase_multi, "preprocess": phase_preprocess}
     t_all = ctx["t_start"] = time.perf_counter()
     for name in PHASES:
         if name not in phases:

@@ -31,12 +31,24 @@ manager's device whatever the manager's dtype, as the JAX package builds
 them in ``jnp.float32``, with the card's convolutions and matmuls off TF32
 and on deterministic algorithms whatever the process-wide settings
 (``models._nets.strict_fp32``).
+
+On a data-parallel mesh (``ModelManager(mesh=...)``, one process a rank
+under ``torchrun``) a grid request on rank 0 runs on every rank: rank 0
+decides, as the JAX package sends grids to ``generate_grid(mesh="auto")``,
+and hands the request's keyword arguments to the other ranks, which run the
+same ``inference()`` call in ``follow_requests``; before sampling every
+rank reports whether it is ready, so a rank's error reaches rank 0, which
+raises it. A rank that fails during sampling is out of step and leaves the
+mesh; rank 0 raises that request's error and runs every later grid alone.
+Other requests run on rank 0 alone, with no collective.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import logging
 import os
 import time
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
@@ -68,9 +80,13 @@ from ..models import ip_adapter as ipa
 from ..models.controlnet import controlnet_init
 from ..models.t2i_adapter import t2i_adapter_init
 from ..ops.resize import resize_latents
+from ..parallel.mesh import RankError
 from ..pipeline.pipeline import DenoiseExtras, StableDiffusionTorch, on_device
 from ..text.tokenizer import load_tokenizer
 from ..utils.profiling import PhaseTimer, Watchdog
+
+_log = logging.getLogger(__name__)
+
 
 @dataclasses.dataclass
 class ControlNetUnit:
@@ -127,13 +143,18 @@ class ModelManager:
     ``device`` defaults to CUDA and raises when there is none (CPU runs
     pass ``device="cpu"``); the parameters live there. ``attn_impl`` and
     ``conv_impl`` go to every ``StableDiffusionTorch`` the manager's
-    requests build."""
+    requests build. ``mesh`` (``parallel.mesh.Mesh``): the data-parallel
+    mesh its grid requests run on (the device defaults to the mesh's); every
+    rank has its own manager with the same models."""
 
     def __init__(self, dtype=torch.bfloat16,
                  device: Optional[Union[str, torch.device]] = None,
-                 attn_impl: str = "pallas", conv_impl: Optional[str] = None):
+                 attn_impl: str = "pallas", conv_impl: Optional[str] = None,
+                 mesh=None):
         self.dtype = dtype
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(
+            mesh.device if device is None and mesh is not None else device)
         self.attn_impl = attn_impl
         self.conv_impl = conv_impl
         self._dirs: Dict[str, Tuple[str, ModelConfig]] = {}
@@ -633,7 +654,17 @@ def inference(
     ``region_state`` a parallel list of per-prompt region dicts (or None);
     every prompt is generated for each seed (``seed`` list, or
     ``num_images_per_prompt`` consecutive seeds), prompt-major. txt2img or
-    img2img only (no inpaint, hires or preview in grid mode)."""
+    img2img only (no inpaint, hires or preview in grid mode). On the
+    manager's mesh, when it has several ranks and they split the grid
+    equally, rank 0 sends the request to the other ranks
+    (``follow_requests``) and returns the whole grid; a rank's error before
+    sampling raises ``RankError`` here. An error during sampling leaves the
+    ranks out of step: rank 0 raises ``RankError`` with the messages of the
+    ranks that left, and runs every later grid alone."""
+    # the request as the other ranks of a mesh take it: every argument but
+    # the manager and the callback (a grid never calls it)
+    request = {k: v for k, v in locals().items()
+               if k not in ("manager", "progress_cb")}
     # Validate latent_preview up front: a bad value must not surface only
     # after a full sampling run (and 'hires' previews need a hires pass).
     if not isinstance(latent_preview, bool):
@@ -881,16 +912,38 @@ def inference(
                     f"{len(grid_prompts)} prompts"
                 )
             grid_inits = [torch.from_numpy(_to_pm1(im)) for im in inits]
+        # the JAX package's mesh="auto", on the manager's mesh: rank 0
+        # decides and sends the request; then every rank reports ready
+        mesh = manager.mesh
+        if mesh is not None and (mesh.world_size == 1 or len(grid_prompts)
+                                 * len(grid_seeds) % mesh.world_size):
+            mesh = None
+        if mesh is not None and mesh.rank == 0 and mesh.left():
+            _log.error("the mesh lost a rank (%s): the grid runs on rank 0 "
+                       "alone", "; ".join(mesh.left()))
+            mesh = None
+        if mesh is not None:
+            if mesh.rank == 0:
+                mesh.send_request(("grid", request))
+            mesh.agree()
         with timer.phase("sample"):
-            out = generate_grid(
-                pipe, grid_prompts, grid_seeds, gen,
-                negative_prompt=neg_prompt, region_states=grid_states,
-                mesh="auto", encoding_mode=encoding_mode, extras=extras,
-                init_images=grid_inits, strength=strength,
-            )
+            try:
+                out = generate_grid(
+                    pipe, grid_prompts, grid_seeds, gen,
+                    negative_prompt=neg_prompt, region_states=grid_states,
+                    mesh=mesh, encoding_mode=encoding_mode, extras=extras,
+                    init_images=grid_inits, strength=strength,
+                )
+            except Exception as e:
+                if mesh is None or mesh.rank > 0:
+                    raise  # a rank > 0 leaves in follow_requests
+                # the ranks are out of step: rank 0 leaves the mesh too
+                mesh.leave(f"{type(e).__name__}: {e}")
+                raise RankError("; ".join(mesh.left())) from e
         watchdog.check()
         with timer.phase("to_host"):
-            images = _to_host_u8(out)
+            images = (_to_host_u8(out) if mesh is None or mesh.rank == 0
+                      else None)
         return {
             "images": images,
             "timings": timer.summary(model=model, sampler=sampler,
@@ -1092,6 +1145,46 @@ def inference(
     if latent_preview and previews is not None:
         result["previews"] = previews
     return result
+
+
+def follow_requests(manager: ModelManager) -> int:
+    """Ranks > 0 of the manager's mesh: run each grid request rank 0 sends
+    (the same ``inference()`` call, in step with rank 0) until it sends
+    ``stop_followers``; returns the requests run. An error before sampling
+    is reported to every rank (``Mesh.agree``, which rank 0 raises) and the
+    loop goes on. One during sampling leaves the ranks out of step: this
+    rank leaves the mesh (``Mesh.leave``, so that rank 0 runs later grids
+    alone) and raises it here, which ends the loop. Rank 0's request in
+    flight fails once this rank's process group is gone (gloo) or at the
+    group's timeout (NCCL)."""
+    mesh = manager.mesh
+    done = 0
+    while True:
+        kind, request = mesh.wait_request()
+        if kind == "stop":
+            return done
+        agreed = mesh.counts["agree"]
+        try:
+            inference(manager, **request)
+        except RankError:  # reported by every rank: the next request
+            continue
+        except Exception as e:  # noqa: BLE001 - reported to rank 0
+            if mesh.counts["agree"] != agreed:
+                mesh.leave(f"{type(e).__name__}: {e}")
+                raise
+            with contextlib.suppress(RankError):
+                mesh.agree(f"{type(e).__name__}: {e}")
+            continue
+        if mesh.counts["agree"] == agreed:
+            mesh.leave("a request rank 0 sent ran on this rank alone")
+            raise RuntimeError("a request rank 0 sent ran on this rank "
+                               "alone: the ranks are out of step")
+        done += 1
+
+
+def stop_followers(manager: ModelManager) -> None:
+    """Rank 0: end the other ranks' ``follow_requests``."""
+    manager.mesh.send_request(("stop", None))
 
 
 def default_warmup_configs(model: str, *, steps: int = 25,

@@ -36,6 +36,16 @@ without its images.
 CLI: ``python -m diffusionspatialcontrol_tpu_torch.app.server
 --model NAME=DIR | --zoo ROOT | --random-model NAME[:FAMILY[:SEED]]
 [--preprocessor NAME=WEIGHTS] [--device cuda|cpu] [--gradio]``.
+
+Under ``torchrun --nproc-per-node N -m
+diffusionspatialcontrol_tpu_torch.app.server ...`` the ranks form a
+data-parallel mesh (``parallel.mesh.init_data_parallel``; NCCL with a card a
+rank, ``--backend gloo`` for ranks that share a card). Rank 0 binds the port
+and serves; a grid request whose samples split equally over the ranks runs
+on all of them (``api.inference``), every other request on rank 0 alone.
+The other ranks follow rank 0's grid requests (``api.follow_requests``)
+until rank 0's server stops, which sends them a stop. Without ``torchrun``
+the server is one process, as above.
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ import base64
 import io
 import itertools
 import json
+import os
 import threading
 import time
 from collections import OrderedDict
@@ -56,7 +67,9 @@ from .. import registry
 from .api import (
     ModelManager,
     default_warmup_configs,
+    follow_requests,
     inference,
+    stop_followers,
     warmup,
 )
 
@@ -525,16 +538,17 @@ def launch_gradio(manager: ModelManager, **kwargs):
     return launch(manager, **kwargs)
 
 
-def build_manager_from_args(args) -> ModelManager:
+def build_manager_from_args(args, mesh=None) -> ModelManager:
     """argparse namespace -> configured ModelManager (split from main() so
-    tests can drive the CLI wiring without binding a port)."""
+    tests can drive the CLI wiring without binding a port); ``mesh``: the
+    rank's data-parallel mesh under ``torchrun``."""
     import torch
 
     from ..config import MODEL_FAMILIES
 
     manager = ModelManager(
         dtype=torch.float32 if args.dtype == "f32" else torch.bfloat16,
-        device=args.device,
+        device=args.device if mesh is None else mesh.device, mesh=mesh,
     )
     for spec in args.model:
         if "=" not in spec:
@@ -611,6 +625,10 @@ def parse_args(argv=None):
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the models run (default cuda; it raises "
                    "without a card)")
+    p.add_argument("--backend", choices=["nccl", "gloo"],
+                   help="under torchrun: the process group's backend "
+                   "(default nccl on cuda, which needs a card a rank; gloo "
+                   "for ranks that share a card, and on cpu)")
     p.add_argument("--warmup", action="store_true",
                    help="run the default shape buckets once for every "
                    "registered model before accepting requests")
@@ -624,15 +642,34 @@ def main(argv=None):
     """CLI: ``python -m diffusionspatialcontrol_tpu_torch.app.server ...``
     (the reference's ``python app.py`` launch, source/app.py:3063)."""
     args = parse_args(argv)
-    manager = build_manager_from_args(args)
-    if args.warmup:
-        for name in list(manager._dirs):
-            warmup(manager, default_warmup_configs(name))
-    if args.gradio:
-        launch_gradio(manager, server_name=args.host, server_port=args.port)
-        return
-    print(f"serving on http://{args.host}:{args.port}", flush=True)
-    serve(manager, host=args.host, port=args.port, block=True)
+    mesh = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:  # under torchrun
+        from ..parallel.mesh import init_data_parallel
+
+        mesh = init_data_parallel(backend=args.backend, device=args.device)
+    try:
+        manager = build_manager_from_args(args, mesh)
+        if mesh is not None and mesh.rank > 0:
+            follow_requests(manager)
+            return
+        try:
+            if args.warmup:
+                for name in list(manager._dirs):
+                    warmup(manager, default_warmup_configs(name))
+            if args.gradio:
+                launch_gradio(manager, server_name=args.host,
+                              server_port=args.port)
+                return
+            print(f"serving on http://{args.host}:{args.port}", flush=True)
+            serve(manager, host=args.host, port=args.port, block=True)
+        finally:
+            if mesh is not None:
+                stop_followers(manager)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":  # pragma: no cover

@@ -25,8 +25,10 @@ cross-attention where a cross-attention carries ``"ip"`` weights
 The opt-in taps of the JAX package run here too: FreeU at the first two up
 blocks, DAAM heatmaps (the cross-attentions' probabilities), TGATE's
 collect / frozen cross-attention outputs, and DeepCache's deep/shallow split
-(``unet_apply_deepcache``). The JAX package's ``axis_name`` (multi-device)
-keyword is not ported (ROADMAP item 22).
+(``unet_apply_deepcache``). The JAX package's ``axis_name`` (the std
+inside ``shard_map``) is ``mesh`` here: on a data-parallel mesh
+(``parallel.mesh.Mesh``) every region-mapped cross-attention all-reduces its
+std's moments over the ranks, so the std stays global over the whole batch.
 """
 
 from __future__ import annotations
@@ -292,13 +294,13 @@ def _self_attention(p, x, heads, flash_opts):
 
 
 def _cross_attention(p, x, cond: UNetCond, level: int, heads, flash_opts,
-                     heatmaps: Optional[list] = None):
+                     heatmaps: Optional[list] = None, mesh=None):
     q = _heads_split(linear(p["to_q"], x), heads)
     k = _heads_split(linear(p["to_k"], cond.context), heads)
     v = _heads_split(linear(p["to_v"], cond.context), heads)
     if cond.region is not None:
         out = region_attention_nlhd(q, k, v, cond.region.biases[level],
-                                    cond.region.sigma)
+                                    cond.region.sigma, mesh=mesh)
     else:
         out = flash_attention_nlhd(q, k, v, **flash_opts)
     if heatmaps is not None:
@@ -375,7 +377,7 @@ _NO_TAPS = _Taps()
 
 
 def _transformer_apply(p, cfg: UNetConfig, x, cond: UNetCond, level: int,
-                       heads, flash_opts, taps: _Taps = _NO_TAPS):
+                       heads, flash_opts, taps: _Taps = _NO_TAPS, mesh=None):
     b, hh, ww, c = x.shape
     residual = x
     h = group_norm(p["norm"], x, cfg.norm_num_groups, 1e-6)
@@ -392,7 +394,7 @@ def _transformer_apply(p, cfg: UNetConfig, x, cond: UNetCond, level: int,
         else:
             xo = _cross_attention(bp["attn2"], layer_norm(bp["norm2"], h),
                                   cond, level, heads, flash_opts,
-                                  taps.heatmaps)
+                                  taps.heatmaps, mesh)
         if taps.out is not None:
             taps.out.append(xo)
         h = h + xo.to(h.dtype)
@@ -443,11 +445,11 @@ def _freeu_scales(freeu: Optional[FreeUParams], i: int):
 class _Run:
     """The state one UNet call threads through its blocks: the weights and
     options, the time projections in the order the resnets run, the skip
-    stack and the taps."""
+    stack, the taps and the mesh."""
 
     def __init__(self, cfg, cond, resnets, temb, conv_impl, flash_opts,
-                 taps=_NO_TAPS):
-        self.cfg, self.cond, self.taps = cfg, cond, taps
+                 taps=_NO_TAPS, mesh=None):
+        self.cfg, self.cond, self.taps, self.mesh = cfg, cond, taps, mesh
         self.conv_impl, self.flash_opts = conv_impl, flash_opts
         self.t_it = iter(_temb_projections(resnets, temb))
         self.skips: List[torch.Tensor] = []
@@ -460,7 +462,7 @@ class _Run:
     def transformer(self, p, h, level):
         return _transformer_apply(p, self.cfg, h, self.cond, level,
                                   self.cfg.heads_at(level), self.flash_opts,
-                                  self.taps)
+                                  self.taps, self.mesh)
 
     def down_block(self, block, h, level, t2i=None, downsample=True):
         """A down block's layers, each output pushed on the skip stack; the
@@ -532,7 +534,7 @@ def unet_apply(params: Dict[str, Any], cfg: UNetConfig,
                collect_heatmaps: bool = False,
                conv_impl: Optional[str] = None,
                xattn_cache: Optional[Tuple[torch.Tensor, ...]] = None,
-               collect_xattn: bool = False):
+               collect_xattn: bool = False, mesh=None):
     """UNet forward: sample (B, H, W, C) NHWC, timesteps (B,) possibly
     fractional. Returns the eps / v prediction (B, H, W, out_channels).
 
@@ -551,7 +553,11 @@ def unet_apply(params: Dict[str, Any], cfg: UNetConfig,
     returns ``(out, outputs)``, the output of every cross-attention call in
     traversal order; ``xattn_cache`` (such a tuple) takes their place and
     skips every cross-attention, its layer norm included, and must hold
-    exactly one entry a cross-attention. The three exclude each other."""
+    exactly one entry a cross-attention. The three exclude each other.
+
+    ``mesh``: ``sample`` is this rank's shard of a data-parallel batch and
+    each region-mapped cross-attention all-reduces its std over the mesh
+    (the JAX package's ``axis_name``)."""
     if collect_xattn and (xattn_cache is not None or collect_heatmaps):
         raise ValueError("collect_xattn is exclusive with xattn_cache / "
                          "collect_heatmaps")
@@ -563,7 +569,8 @@ def unet_apply(params: Dict[str, Any], cfg: UNetConfig,
                  out=[] if collect_xattn else None)
     run = _Run(cfg, cond, _all_resnets(params),
                _time_embedding(params, cfg, sample, timesteps),
-               check_conv_impl(conv_impl), flash_options(attn_impl), taps)
+               check_conv_impl(conv_impl), flash_options(attn_impl), taps,
+               mesh)
 
     h = conv2d(params["conv_in"], sample)
     run.skips.append(h)
@@ -603,7 +610,7 @@ def unet_apply_deepcache(params: Dict[str, Any], cfg: UNetConfig,
                          cond: UNetCond, cache: torch.Tensor, use_cache,
                          attn_impl: str = "pallas",
                          freeu: Optional[FreeUParams] = None,
-                         conv_impl: Optional[str] = None):
+                         conv_impl: Optional[str] = None, mesh=None):
     """UNet forward with DeepCache's deep/shallow split. Returns
     ``(out, new_cache)``.
 
@@ -618,7 +625,7 @@ def unet_apply_deepcache(params: Dict[str, Any], cfg: UNetConfig,
     operations in the same order as ``unet_apply``, so it equals it. The
     time projections are one GEMM over the resnets the call runs.
     ControlNet and T2I residuals inject into the deep branch and are
-    rejected."""
+    rejected. ``mesh`` as in ``unet_apply``."""
     if cond.controlnet_down is not None or cond.t2i_residuals is not None:
         raise ValueError(
             "deepcache does not support ControlNet/T2I-Adapter residuals "
@@ -629,7 +636,8 @@ def unet_apply_deepcache(params: Dict[str, Any], cfg: UNetConfig,
                else _all_resnets(params))
     run = _Run(cfg, cond, resnets,
                _time_embedding(params, cfg, sample, timesteps),
-               check_conv_impl(conv_impl), flash_options(attn_impl))
+               check_conv_impl(conv_impl), flash_options(attn_impl),
+               mesh=mesh)
 
     h = conv2d(params["conv_in"], sample)
     run.skips.append(h)

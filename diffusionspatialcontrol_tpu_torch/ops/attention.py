@@ -17,8 +17,9 @@ reductions in the JAX package too), and ``attention_probs``, the softmax
 probabilities the heatmap taps of ``models/unet.py`` read (a plain XLA op in
 the JAX package). The BTNH entry points the UNet calls,
 ``flash_attention_nlhd`` and ``region_attention_nlhd``, live with their
-kernels in ``ops/kernels``. The ``axis_name`` (multi-device) branch of the
-JAX package is not ported yet.
+kernels in ``ops/kernels``. The JAX package's ``axis_name`` branch (the
+std inside ``shard_map``) is ``logits_std_gram_nlhd``'s ``mesh``: the moment
+sums all-reduced over the ranks of a data-parallel mesh (``parallel/``).
 """
 
 from __future__ import annotations
@@ -79,8 +80,17 @@ def logits_std_gram(q, k, scale: float) -> torch.Tensor:
     return _combine_moments(means, m2, L * S)
 
 
-def logits_std_gram_nlhd(q, k, scale: float) -> torch.Tensor:
-    """BTNH variant of ``logits_std_gram`` (q: (B, L, H, D))."""
+def logits_std_gram_nlhd(q, k, scale: float, mesh=None) -> torch.Tensor:
+    """BTNH variant of ``logits_std_gram`` (q: (B, L, H, D)).
+
+    With ``mesh`` (``parallel.mesh.Mesh``; q and k this rank's equal shard
+    of the batch) the std is global over every rank's batch, as the
+    reference's is over the whole CFG batch (attention_modify.py:95): one
+    fp32 tensor [sum m2, sum means, sum means^2] is all-reduced, the only
+    collective of a sampling step, and combined by the JAX package's
+    ``axis_name`` formula (its attention.py:232-240), which differs from
+    ``_combine_moments`` by rounding. The result stays a 0-d tensor on the
+    device: nothing waits for the host."""
     qf, kf = q.float(), k.float()
     L, S = q.shape[1], k.shape[1]
     q_mean = qf.mean(dim=1)  # (B, H, D)
@@ -88,7 +98,18 @@ def logits_std_gram_nlhd(q, k, scale: float) -> torch.Tensor:
     qc = (qf - q_mean[:, None]).transpose(1, 2)  # (B, H, L, D)
     kc = (kf - k_mean[:, None]).transpose(1, 2)
     means, m2 = _centered_gram_moments(qc, kc, q_mean, k_mean, scale, L, S)
-    return _combine_moments(means, m2, L * S)
+    n_group = L * S
+    if mesh is None:
+        return _combine_moments(means, m2, n_group)
+    sums = mesh.all_reduce(torch.stack(
+        [m2.sum(), means.sum(), (means * means).sum()]))
+    t_m2, t_mean, t_mean2 = sums.unbind()
+    groups = means.numel() * mesh.world_size
+    grand_mean = t_mean / groups
+    between = torch.clamp(t_mean2 - groups * grand_mean ** 2, min=0.0)
+    total_m2 = t_m2 + n_group * between
+    return torch.sqrt(torch.clamp(total_m2 / (groups * n_group - 1),
+                                  min=0.0))
 
 
 def region_bias(region_state, sigma, std, weight_scale: float = 1.0):

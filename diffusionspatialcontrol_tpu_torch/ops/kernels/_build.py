@@ -5,11 +5,15 @@ loaded with ``ctypes``. Libraries go to ``build/torch_kernels/`` at the root
 of the checkout, named by a hash of the source, the headers it may include
 and the compiler flags, so a changed source is rebuilt and an unchanged one
 is reused. Nothing here runs at import time: the CPU tests import every
-module of the port on a machine without ``nvcc``.
+module of the port on a machine without ``nvcc``. Processes that build at
+once (the ranks of a data-parallel mesh) take a file lock a source, so one
+of them compiles it and the others load its library; the lock is the
+kernel's (``flock``), released when its holder ends, however it ends.
 """
 
 from __future__ import annotations
 
+import fcntl
 import hashlib
 import os
 import shutil
@@ -50,26 +54,39 @@ def library_path(name: str) -> Path:
 
 def _start(name: str):
     """Start nvcc for one source unless its library exists; returns
-    (process or None, temp output, final output)."""
+    (process or None, temp output, final output, lock file or None). The
+    lock is held until ``_finish``."""
     out = library_path(name)
     if out.exists():
-        return None, None, out
+        return None, None, out, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lock = open(BUILD_DIR / f"{name}.lock", "w")
+    fcntl.flock(lock, fcntl.LOCK_EX)  # another process may be building it
+    if out.exists():
+        lock.close()
+        return None, None, out, None
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    try:
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+    except BaseException:
+        lock.close()
+        raise
+    return proc, tmp, out, lock
 
 
-def _finish(name: str, proc, tmp: Path, out: Path) -> None:
+def _finish(name: str, proc, tmp: Path, out: Path, lock) -> None:
     if proc is None:
         return
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
-                           f"(exit {proc.returncode}):\n{log}")
-    os.replace(tmp, out)  # atomic: a reader never sees a partial library
+    try:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                               f"(exit {proc.returncode}):\n{log}")
+        os.replace(tmp, out)  # atomic: a reader never sees a partial one
+    finally:
+        lock.close()  # releases the flock
 
 
 def build(names: Sequence[str] = SOURCES) -> float:
@@ -77,8 +94,8 @@ def build(names: Sequence[str] = SOURCES) -> float:
     together. Returns the wall seconds the build took."""
     t0 = time.perf_counter()
     started = [(n, *_start(n)) for n in names]
-    for n, proc, tmp, out in started:
-        _finish(n, proc, tmp, out)
+    for n, *job in started:
+        _finish(n, *job)
     return time.perf_counter() - t0
 
 

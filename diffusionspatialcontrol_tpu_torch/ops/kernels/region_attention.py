@@ -12,7 +12,9 @@ the CUDA-core body of ``csrc/attention.cuh``, which takes any S.
 
 The global logits std and the bias ``w = region * (weight_scale * sigma *
 std)`` are plain reductions before the launch, as in the JAX package; sigma
-and std stay 0-d device tensors, so nothing here waits for the card.
+and std stay 0-d device tensors, so nothing here waits for the card. On a
+data-parallel mesh the std's moments are all-reduced over the ranks first
+and K1 launches as it does on one device.
 
 Dispatch: CPU tensors take ``region_softmax_attention_plain``; CUDA tensors
 launch the kernel or raise. ``region_softmax_attention.launches`` counts
@@ -87,11 +89,12 @@ region_softmax_attention.shapes = collections.Counter()
 
 
 def region_attention_nlhd(q, k, v, region_state, sigma,
-                          weight_scale: float = 1.0):
+                          weight_scale: float = 1.0, mesh=None):
     """Region attention on (B, L, H, D) operands; region_state (B, L, S),
     sigma a 0-d tensor. The counterpart of the Pallas wrapper of the same
-    name."""
+    name; ``mesh`` is its ``axis_name``: the operands are this rank's shard
+    and the std is all-reduced over the mesh (``logits_std_gram_nlhd``)."""
     scale = q.shape[-1] ** -0.5
-    std = logits_std_gram_nlhd(q, k, scale)
+    std = logits_std_gram_nlhd(q, k, scale, mesh=mesh)
     w = region_bias(region_state, sigma, std, weight_scale)
     return region_softmax_attention(q, k, v, w)

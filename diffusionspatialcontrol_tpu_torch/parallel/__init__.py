@@ -1,1 +1,3 @@
-"""Multi-prompt grids (one device; meshes wait for multi-GPU)."""
+"""Data parallelism over ranks: the mesh (``mesh``), the explicit-SPMD
+sampler (``spmd``) and multi-prompt grids on one device or a mesh
+(``batched``)."""

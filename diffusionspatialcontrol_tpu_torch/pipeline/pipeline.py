@@ -203,6 +203,7 @@ def make_denoise_fn(
     sigma_steps: Optional[np.ndarray] = None,
     xattn_cache: Optional[Tuple[torch.Tensor, ...]] = None,
     collect_xattn: bool = False,
+    mesh=None,
 ):
     """The sigma-space denoiser D(x; sigma); sigma is a 0-d fp32 tensor.
 
@@ -234,7 +235,12 @@ def make_denoise_fn(
     returns ``(denoised, cross-attention outputs)``; ``xattn_cache`` feeds
     such outputs to every call in place of the cross-attentions, and needs
     guidance off (the TGATE tail runs cond-only: with a shared frozen
-    cross-attention the CFG halves are identical)."""
+    cross-attention the CFG halves are identical).
+
+    ``mesh`` (``parallel.mesh.Mesh``; the JAX package's ``axis_name``): x,
+    the context and every conditioning tensor are this rank's shard of a
+    data-parallel batch, and the region std is all-reduced over the mesh
+    in every mapped cross-attention (``models.unet.unet_apply``)."""
     if xattn_cache is not None and guidance_scale > 1.0:
         raise ValueError(
             "xattn_cache requires guidance off (the TGATE tail runs "
@@ -244,7 +250,8 @@ def make_denoise_fn(
     def unet(model_in, t_b, cond):
         out = unet_apply(params["unet"], model_cfg.unet, model_in, t_b, cond,
                          attn_impl=attn_impl, conv_impl=conv_impl,
-                         xattn_cache=xattn_cache, collect_xattn=collect_xattn)
+                         xattn_cache=xattn_cache, collect_xattn=collect_xattn,
+                         mesh=mesh)
         return out if collect_xattn else (out, None)
 
     denoise = _make_denoiser(params, model_cfg, context, region_biases,
@@ -797,13 +804,14 @@ class StableDiffusionTorch:
             opts["eta"] = gen.eta
         return opts
 
-    def _denoiser(self, context, region_biases, gen, sigmas, extras=None):
+    def _denoiser(self, context, region_biases, gen, sigmas, extras=None,
+                  mesh=None):
         return make_denoise_fn(
             self.params, self.model_cfg, context.to(self.device),
             region_biases, self.log_sigma_table, gen.guidance_scale,
             gen.guidance_rescale, self.attn_impl, compute_dtype=gen.dtype,
             conv_impl=self.conv_impl, extras=extras,
-            sigma_steps=sigmas[:-1])
+            sigma_steps=sigmas[:-1], mesh=mesh)
 
     def _decode(self, x, uint8_output, cond_image=None, cond_mask=None):
         images = vae_decode(self.params["vae"], self.model_cfg.vae, x,
@@ -812,10 +820,10 @@ class StableDiffusionTorch:
         return to_uint8(images) if uint8_output else images
 
     def _sample(self, x, context, region_biases, sigmas, gen, noise, decode,
-                uint8_output, return_history=False, extras=None):
+                uint8_output, return_history=False, extras=None, mesh=None):
         solver_fn, _, defaults = solvers.SOLVERS[gen.sampler]
         res = solver_fn(self._denoiser(context, region_biases, gen, sigmas,
-                                       extras),
+                                       extras, mesh),
                         x, sigmas, noise=noise,
                         return_history=return_history,
                         **self._solver_opts(gen, defaults))
@@ -848,7 +856,7 @@ class StableDiffusionTorch:
                 decode: bool = True, latents: Optional[torch.Tensor] = None,
                 extras: Optional[DenoiseExtras] = None,
                 hires: Optional[dict] = None, return_history: bool = False,
-                uint8_output: bool = False):
+                uint8_output: bool = False, mesh=None):
         """txt2img on a pre-encoded context. Returns images (B, H, W, 3),
         fp32 in [-1, 1] (uint8 with ``uint8_output``), or the final latents
         with ``decode=False``. ``gen.sampler`` names a solver of
@@ -881,12 +889,19 @@ class StableDiffusionTorch:
 
         ``return_history``: also return the latents after every step,
         (n_steps, B, h, w, 4); with hires, ``(images, [base history, hires
-        history])``."""
+        history])``.
+
+        ``mesh`` (``parallel.mesh.Mesh``): this rank's part of a
+        data-parallel batch. Every input is the rank's own shard (its
+        samples' context and biases in the [uncond..., cond...] layout,
+        their seeds, units and latents) and so is the result; the region
+        std is all-reduced over the mesh, so it stays global over the whole
+        batch (``parallel.batched.generate_grid`` shards and gathers)."""
         sigmas, _ = self._schedule(gen)
         x, noise = self._init(gen, sigmas, seed, batch_size, latents)
         out = self._sample(x, context, region_biases, sigmas, gen, noise,
                            decode and hires is None, uint8_output,
-                           return_history, extras)
+                           return_history, extras, mesh)
         if hires is None:
             return out
         base_history = None
@@ -926,7 +941,7 @@ class StableDiffusionTorch:
                               seed=_next_seed(seed), region_biases=hr_biases,
                               decode=decode, extras=hr_extras,
                               uint8_output=uint8_output,
-                              return_history=return_history)
+                              return_history=return_history, mesh=mesh)
         if return_history:
             hr_out, hr_history = hr_out
             return hr_out, [base_history, hr_history]
@@ -937,11 +952,12 @@ class StableDiffusionTorch:
                 gen: GenerationConfig, strength: float = 0.8,
                 seed: SeedT = 0, region_biases=None, decode: bool = True,
                 extras: Optional[DenoiseExtras] = None,
-                return_history: bool = False, uint8_output: bool = False):
+                return_history: bool = False, uint8_output: bool = False,
+                mesh=None):
         """img2img on latents: the schedule is cut by ``strength`` and the
         init latents are noised to its first sigma. ``init_latents`` are
-        (B, h, w, 4) *scaled* latents; ``seed`` and ``extras`` as in
-        ``txt2img``. The units' per-step tables have a column a step of
+        (B, h, w, 4) *scaled* latents; ``seed``, ``extras`` and ``mesh`` as
+        in ``txt2img``. The units' per-step tables have a column a step of
         ``gen``; the cut schedule's steps read their first columns, as in
         the JAX package. Returns what ``txt2img`` returns."""
         sigma_sched = self._cut_schedule(gen, strength)
@@ -954,7 +970,7 @@ class StableDiffusionTorch:
                                    gen.sampler)
         return self._sample(x, context, region_biases, sigma_sched, gen,
                             noise, decode, uint8_output, return_history,
-                            extras)
+                            extras, mesh)
 
     @torch.inference_mode()
     def inpaint(self, context: torch.Tensor, init_image: torch.Tensor,

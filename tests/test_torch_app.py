@@ -41,6 +41,7 @@ from diffusionspatialcontrol_tpu_torch.models import clip_vision as tclip_vision
 from diffusionspatialcontrol_tpu_torch.models import factory as tfactory
 from diffusionspatialcontrol_tpu_torch.models import face_detect as tface_detect
 from diffusionspatialcontrol_tpu_torch.ops import face_embed as tface_embed
+from diffusionspatialcontrol_tpu_torch.parallel import mesh as tmesh
 from diffusionspatialcontrol_tpu_torch.parallel.batched import generate_grid
 from diffusionspatialcontrol_tpu_torch.pipeline import pipeline as tpipeline
 from diffusionspatialcontrol_tpu_torch.runtime import native as tnative
@@ -886,8 +887,17 @@ def test_grid_img2img_encodes_each_sample_under_its_seed(manager):
     assert [s for _, s in calls] == [2, 3, 2, 3]
     assert calls[0][0] == calls[1][0] != calls[2][0] == calls[3][0]
     assert tuple(out.shape) == (4, 8, 8, 4)
-    with pytest.raises(NotImplementedError, match="item 22"):
-        generate_grid(pipe, ["a"], [0], gen, mesh=object())
+    # a mesh now runs (tests/test_torch_parallel.py); "auto" without a
+    # process group is one device, and a mesh whose ranks cannot split the
+    # grid equally is refused
+    calls.clear()
+    auto = generate_grid(pipe, ["a", "b"], [2, 3], gen, init_images=inits,
+                         strength=0.5, decode=False, mesh="auto")
+    assert torch.equal(auto, out) and len(calls) == 4
+    with pytest.raises(ValueError, match="equal shards"):
+        generate_grid(pipe, ["a"], [0], gen, mesh=tmesh.Mesh(
+            rank=0, world_size=2, device=torch.device("cpu"),
+            backend="gloo"))
 
 
 def test_watchdog_and_progress_cb_stop_a_run(manager):

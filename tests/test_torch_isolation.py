@@ -35,6 +35,9 @@ PACKAGE = ROOT / "diffusionspatialcontrol_tpu_torch"
 APP_LAYER = tuple(f"diffusionspatialcontrol_tpu_torch.{m}" for m in (
     "registry", "utils.profiling", "runtime.native", "app.api",
     "parallel.batched", "utils.region_ui", "app.server"))
+# data parallelism: the mesh and the explicit-SPMD sampler
+PARALLEL = tuple(f"diffusionspatialcontrol_tpu_torch.parallel.{m}"
+                 for m in ("mesh", "spmd"))
 # the ControlNet and T2I-Adapter models
 UNITS = tuple(f"diffusionspatialcontrol_tpu_torch.models.{m}"
               for m in ("controlnet", "t2i_adapter"))
@@ -90,8 +93,8 @@ def probe():
 def test_importing_every_port_module_loads_no_jax(probe):
     result = probe
     assert len(result["modules"]) >= 20
-    assert set(APP_LAYER + UNITS + IP_ADAPTER + CONVERT + INTROSPECT
-               + PREPROCESS) <= set(result["modules"])
+    assert set(APP_LAYER + PARALLEL + UNITS + IP_ADAPTER + CONVERT
+               + INTROSPECT + PREPROCESS) <= set(result["modules"])
     assert result["loaded"] == []
 
 
@@ -100,6 +103,46 @@ def test_importing_every_port_module_loads_no_cv2_pil_transformers_gradio(
     """The card's machine has none of them; the Gradio UI and base64 image
     inputs import theirs at first use."""
     assert probe["absent"] == []
+
+
+# A rank started with the spawn method (as chip_smoke.py starts its ranks)
+# on a one-rank gloo mesh: the modules of JAX and of the JAX package it has
+# loaded after an all-reduce.
+_RANK_PROBE = """
+import json, multiprocessing, sys
+
+
+def rank(queue, path):
+    import torch
+    from diffusionspatialcontrol_tpu_torch.app import api, server  # noqa
+    from diffusionspatialcontrol_tpu_torch.parallel import batched, mesh, spmd
+
+    m = mesh.init_data_parallel(device="cpu", init_method=f"file://{path}",
+                                rank=0, world_size=1)
+    m.all_reduce(torch.ones(3))
+    torch.distributed.destroy_process_group()
+    queue.put(sorted(k for k in sys.modules if k.split(".")[0] in (
+        "jax", "jaxlib", "diffusionspatialcontrol_tpu")))
+
+
+if __name__ == "__main__":
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    proc = ctx.Process(target=rank, args=(queue, sys.argv[1]))
+    proc.start()
+    print(json.dumps(queue.get(timeout=100)))
+    proc.join(timeout=30)
+"""
+
+
+def test_a_spawned_rank_loads_no_jax(tmp_path):
+    script = tmp_path / "rank_probe.py"
+    script.write_text(_RANK_PROBE)
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, str(script), str(tmp_path / "s")],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def _imported_roots(path: Path):

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from diffusionspatialcontrol_tpu import config as jcfg
 from diffusionspatialcontrol_tpu.models import unet as junet
@@ -21,6 +22,7 @@ from diffusionspatialcontrol_tpu_torch.convert.from_jax import params_from_jax
 from diffusionspatialcontrol_tpu_torch.models import unet as tunet
 from diffusionspatialcontrol_tpu_torch.ops.kernels import flash_attention as k2
 from diffusionspatialcontrol_tpu_torch.ops.kernels import region_attention as k1
+from diffusionspatialcontrol_tpu_torch.parallel.mesh import data_parallel_mesh
 from tests.test_torch_controlnet import to_jax
 
 # One intra-op thread per xdist worker: the workers share the CPU's cores.
@@ -101,16 +103,38 @@ def test_unet_fused_convs_match_jax_xla(unet_params, conv_impl):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-3, atol=2e-4)
 
 
-def test_unet_rejects_unported_options(unet_params):
+def test_unet_rejects_unported_options(unet_params, tmp_path):
     """FreeU, heatmaps and the TGATE taps now run
     (tests/test_torch_unet_modes.py holds them to the JAX UNet); a keyword
-    the JAX package's ``unet_apply`` lacks, or its ``axis_name`` (ROADMAP
-    item 22), is a TypeError as for any call; an unknown ``conv_impl``
-    raises ValueError; ControlNet and T2I residuals (``UNetCond``) run:
-    zero residuals leave the output as it is, bit for bit (their parity is
-    tests/test_torch_units.py's)."""
+    the JAX package's ``unet_apply`` lacks is a TypeError as for any call,
+    and so is its ``axis_name``, whose counterpart here is ``mesh``: on a
+    one-rank gloo mesh a mapped call gives the output of the call without
+    one (the std's two formulas differ by rounding), a full DeepCache call
+    on it gives the same bits, and each call issues one all-reduce per
+    cross-attention (tests/test_torch_parallel.py runs several ranks); an unknown ``conv_impl`` raises ValueError; ControlNet
+    and T2I residuals (``UNetCond``) run: zero residuals leave the output
+    as it is, bit for bit (their parity is tests/test_torch_units.py's)."""
     _, tp = unet_params
-    x, ctx, t, _ = _inputs(2)
+    x, ctx, t, biases = _inputs(2)
+    mapped = tunet.UNetCond(context=torch.from_numpy(ctx),
+                            region=tunet.RegionState(
+                                tuple(torch.from_numpy(b) for b in biases),
+                                torch.tensor(3.0)))
+    margs = (tp, tcfg.tiny_config().unet, torch.from_numpy(x),
+             torch.from_numpy(t), mapped)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = data_parallel_mesh("cpu")
+        on_mesh = tunet.unet_apply(*margs, mesh=mesh)
+        cache = torch.zeros(tunet.deepcache_shape(margs[1], 2, 16, 16))
+        full, _ = tunet.unet_apply_deepcache(*margs, cache, 0.0, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    assert dict(mesh.counts) == {"all_reduce": 32}
+    torch.testing.assert_close(on_mesh, tunet.unet_apply(*margs), rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(full, on_mesh)  # a full DeepCache call is unet_apply
     cond = tunet.UNetCond(context=torch.from_numpy(ctx))
     args = (tp, tcfg.tiny_config().unet, torch.from_numpy(x),
             torch.from_numpy(t), cond)
