@@ -24,7 +24,10 @@ result line:
    level and at the hires pass's L = 16384, the ViT-H/14 tower's
    L = S = 257 at D = 80, the Resampler's L = 16, S = 273 at D = 64); K1
    and K2 at every level of bottleneck sampling's 32^2 latents (level 0:
-   L = 1024 at D = 40),
+   L = 1024 at D = 40); K1 at the 1920x1088 request's level 0 (B = 2,
+   L = 32640) with that request's own bias, and K1 and K2 (self- and
+   cross-attention) at batch 4 with the CFG pair (B = 8) at the 512^2 and
+   768^2 level 0 (L = 4096, 9216),
    with the RMS-relative error beside the elementwise one and, where the C_in chunks are split
    over several blocks, two launches held bitwise equal. Each with its time
    beside the plain version's, the least time the card could take (bound;
@@ -56,7 +59,9 @@ result line:
    CLIP-vision tower; for FaceID the tiny SCRFD detector and a 512-wide
    tiny ArcFace), and a hires request reusing the tokens; and the speed
    modes (TGATE, DeepCache, cfg-tail, bottleneck sampling at 128^2),
-   ``heatmaps_for_state`` and ``unet_apply`` with FreeU (cuFFT). The
+   ``heatmaps_for_state`` and ``unet_apply`` with FreeU (cuFFT); and a
+   spatial request at 128 x 192 (its deepest UNet level 2 x 3: an odd
+   side, as 1088 x 1920's 17 x 30). The
    card's uint8 conversion must equal the JAX package's codec rounding
    bit for bit. Launches are exact: 16 of K1 and K2 per UNet
    call, and 14 of K2 per ControlNet call, the calls counted at the
@@ -89,7 +94,17 @@ result line:
    kernels (the spatial request also with the host's ops) at the end of
    the run, after every phase's timed requests: a profile leaves the host
    slower at launching for the rest of the process;
-5. modes: the opt-in speed modes and DAAM on SD1.5 at full width, main's
+5. large: the JAX package's large requests on SD1.5 at full width, each
+   through ``txt2img`` with exact launches, its denoiser calls free of host
+   reads: ``large_spatial`` (1088 x 1920 with a one-phrase map,
+   benchmarks/bench_large.py; K3: K2's 125 launches at L = S = 32640),
+   ``b4_vanilla`` and ``b4_768_vanilla`` (batch 4 at 512^2 and 768^2,
+   bench.py:157-179) and ``b4_spatial`` (512^2 batch 4 with main's map),
+   with their p50s, the card's peak allocation and, first among the
+   queued profiles, one profile each; ``large_spatial``'s region state on
+   the card equal to the CPU's, and ``large_spatial`` once through
+   ``inference()``, its image equal to ``txt2img``'s bit for bit;
+6. modes: the opt-in speed modes and DAAM on SD1.5 at full width, main's
    spatial request otherwise: TGATE at gate 0.5 with and without the map,
    DeepCache at interval 3 with plain convs and with K5, bottleneck
    sampling at low_scale 0.5 (K1/K2 at L = 1024), cfg-tail at 0.3, each
@@ -97,7 +112,7 @@ result line:
    reads, its p50 after one warm-up and one profile at the end; and the
    DAAM heatmaps of a spatial request's trajectory (24 replayed UNet
    calls) with the time of the maps alone;
-6. weights: SD1.5 at full width from disk: random weights drawn in fp32,
+7. weights: SD1.5 at full width from disk: random weights drawn in fp32,
    written as a diffusers checkpoint in fp16 by the port's own safetensors
    writer and loaded in bf16 by ``ModelManager.get``, by ``cached_convert``
    (convert and snapshot, then restore) and by a server started with
@@ -112,7 +127,7 @@ result line:
    manager's ViT-H/14 tower) and a ControlNet file, each with its exact
    launches; the seconds to write, read, convert and restore, the host's
    peak RSS and the card's peak allocation;
-7. app: the app layer on SD1.5 at full width: ``ModelManager()`` behind the
+8. app: the app layer on SD1.5 at full width: ``ModelManager()`` behind the
    JSON HTTP server, in this process. The spatial request over HTTP (the
    PNGs decoded here and held bit for bit to a direct ``inference()`` call
    and to the pipeline; repeated POSTs byte-identical), a job polled to
@@ -124,7 +139,7 @@ result line:
    ``/warmup``, with exact UNet calls and launches; the HTTP, direct and
    pipeline p50s side by side, and one HTTP request profiled by its
    kernels;
-8. multi: data parallelism on the one card, SD1.5 at full width and
+9. multi: data parallelism on the one card, SD1.5 at full width and
    main's spatial request: one NCCL rank in this process runs
    ``sample_spmd(check_collectives=True)`` (400 all-reduces, K1 and K2 400
    launches) against ``txt2img`` on fp32 latents within 1e-3; then two
@@ -138,7 +153,7 @@ result line:
    rank 0's ``inference()`` images bit for bit); the grid's p50 on the
    mesh beside one process, and one request's 400 all-reduces alone. With
    several cards visible, the ranks are one NCCL rank a card instead;
-9. preprocess: the control preprocessors. Every detector network at the
+10. preprocess: the control preprocessors. Every detector network at the
    small config of the CPU tests, card against CPU (within 1e-4 of the
    output's largest value); every network at its published width (DPT-
    Large, ZoeDepth's BEiT-L, UperNet-ConvNeXt-T, NNET on EfficientNet-B5,
@@ -182,8 +197,8 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("build", "kernels", "tiny", "main", "modes", "weights", "app",
-          "multi", "preprocess")
+PHASES = ("build", "kernels", "tiny", "main", "large", "modes", "weights",
+          "app", "multi", "preprocess")
 
 PROMPT = "a red cat sitting on a wooden bench, a blue bird flying"
 NEG = "bad quality, low quality, jpeg artifact, cropped"
@@ -230,10 +245,15 @@ LONG_PROMPT = (
     "gentle breeze, peaceful mood, fine art photograph")
 
 # Where the JAX package streams K/V (K3): the level-0 self-attention at
-# 1024^2 (the hires pass) and at 1920x1088 (kernel check only); B, H, D as
+# 1024^2 (the hires pass) and at 1920x1088 (``large_spatial``); B, H, D as
 # above.
 K3_SHAPES = ((16384, 40), (32640, 40))
 HIRES = 1024
+# The JAX package's large requests: benchmarks/bench_large.py's spatial
+# request at 1920x1088 (a one-phrase map), and bench.py:157-179's batch of
+# 4 at 512^2 and 768^2; (H, W) and the batch.
+LARGE = (1088, 1920)
+B4 = 4
 # IP-Adapter's attentions on K2: the decoupled cross-attention at each
 # level (B = 2, the CFG pair; H = 8) with S = 1 (Face), 4 (base, Light,
 # FaceID) and 16 (Plus, Plus Face) image tokens, and at the hires pass's
@@ -249,8 +269,8 @@ ROUNDS = 4  # phase app: timed rounds of each path after one warm-up
 # takes 8-52 s), so that it stays inside its 1200 s limit.
 PROFILE_DEADLINE_S = 900.0
 # request types timed but no longer profiled: PERF.md section 5 holds their
-# profiles, and the time goes to phase preprocess (the weights
-# phase's init-strides request and inpaint_asym's profiles are dropped too)
+# profiles, and the time goes to the later phases (inpaint_asym's profile
+# is dropped too)
 UNPROFILED = ("tgate_vanilla", "deepcache_pallas2")
 NEW_SEEDS = [0, 1, 2, 3, 4]  # the images-in and SD2.1 requests: a warm-up
 
@@ -630,14 +650,19 @@ def phase_kernels(ctx):
             f"{what} of one request: {tot['ms']:.4f} ms, plain "
             f"{tot['plain_ms']:.4f} ms, sdpa {tot['library_ms']:.4f} ms, "
             f"bound {tot['bound_ms']:.4f} ms ({tot['bound_by']})")
+    large, large_errs = large_checks(dev, g, timer, sdpa)
+    for kern in ("K1", "K2"):
+        errs[kern] = [max(a, b) for a, b in zip(errs[kern],
+                                                large_errs[kern])]
     ctx["kernels"] = {
         "K1": dict(summary(rows["K1"]), err=errs["K1"],
                    shapes=rows["K1"] + rows["K1 chunked"] + rows["K1 sd21"]
-                   + rows["K1 bottleneck"]),
+                   + rows["K1 bottleneck"] + large["K1"]),
         "K2": dict(summary(rows["K2"]), err=errs["K2"],
                    shapes=rows["K2"] + rows["K2 cross"] + rows["K2 chunked"]
                    + rows["K2 sd21"] + rows["K2 ip"] + rows["K2 ip tower"]
-                   + rows["K2 ip resampler"] + rows["K2 bottleneck"]),
+                   + rows["K2 ip resampler"] + rows["K2 bottleneck"]
+                   + large["K2"]),
         "K3": k3_checks(dev, g, timer, sdpa),
     }
     ctx["kernels"].update(conv_checks(dev, g, timer))
@@ -645,15 +670,12 @@ def phase_kernels(ctx):
 
 def k3_checks(dev, g, timer, sdpa):
     """K2 at the shapes where the JAX package leaves its single-pass kernel
-    for the streaming K3, against the plain version run on 1024 query rows
-    at a time (the whole fp32 logits would be 17 GB at L = 32640), with
-    and without pv_bf16 and exp2. Tolerances as for K2."""
+    for the streaming K3, against the plain version (``by_query_rows``),
+    with and without pv_bf16 and exp2. Tolerances as for K2."""
     from diffusionspatialcontrol_tpu_torch.ops.kernels import flash_attention as k2
 
     def plain(q, k, v, **opts):
-        return torch.cat([k2.flash_attention_plain(q[:, i:i + 1024], k, v,
-                                                   **opts)
-                          for i in range(0, q.shape[1], 1024)], dim=1)
+        return by_query_rows(k2.flash_attention_plain, q, k, v, **opts)
 
     rows, errs = [], [0.0, 0.0]
     for l, d in K3_SHAPES:
@@ -688,6 +710,124 @@ def k3_checks(dev, g, timer, sdpa):
         del qb, kb, vb
     first = rows[0]  # the hires path's shape: the row's numbers
     return dict(first, err=errs, shapes=rows)
+
+
+def by_query_rows(fn, q, k, v, w=None, **opts):
+    """``fn(q, k, v[, w], **opts)`` on 1024 query rows at a time: the plain
+    versions hold the (B, H, L, S) fp32 logits, 17 GB at L = S = 32640."""
+    return torch.cat([
+        fn(q[:, i:i + 1024], k, v,
+           *(() if w is None else (w[:, i:i + 1024],)), **opts)
+        for i in range(0, q.shape[1], 1024)], dim=1)
+
+
+def large_state(height: int, width: int) -> dict:
+    """``large_spatial``'s map, as benchmarks/bench_large.py draws it: one
+    phrase on the left half, weight 0.8, ``mask_outsides`` 0.2."""
+    m = np.zeros((height, width), np.float32)
+    m[:, : width // 2] = 1.0
+    return {"red cat": {"mask": m, "weight": 0.8, "mask_outsides": 0.2}}
+
+
+def large_region_state(device):
+    """``large_spatial``'s region state, one (2, L, 77) tensor a UNet level
+    (the CFG pair), from the prompt's short-mode ids, rasterized on the CPU
+    and moved to ``device`` as the pipeline's ``encode_region`` does."""
+    from diffusionspatialcontrol_tpu_torch.ops.region_map import (
+        encode_region_state,
+    )
+    from diffusionspatialcontrol_tpu_torch.text.encoder import tokenize_batch
+    from diffusionspatialcontrol_tpu_torch.text.tokenizer import (
+        load_tokenizer,
+    )
+
+    tok = load_tokenizer()
+    ids = [[int(i) for i in row] for row in tokenize_batch(tok, [PROMPT])]
+    return encode_region_state(
+        [large_state(*LARGE)], ids,
+        lambda p: tok.encode(p, add_special_tokens=False),
+        height=LARGE[0], width=LARGE[1], device=device)
+
+
+def large_checks(dev, g, timer, sdpa):
+    """K1 and K2 at the large requests' shapes, against their plain
+    versions run on 1024 query rows at a time: K1 at ``large_spatial``'s
+    level 0 (B = 2, L = 32640, S = 77, H = 8, D = 40) with that request's
+    own bias (its level-0 region state times sigma_max and the logits std,
+    as the UNet's first step forms it), and K1, K2's self-attention and
+    K2's cross-attention at B = 8 (batch 4 with the CFG pair) at the 512^2
+    and 768^2 level 0 (L = 4096, 9216). Tolerances as in phase kernels.
+    Returns the rows by kernel and the largest errors, [fp32, bf16]."""
+    from diffusionspatialcontrol_tpu_torch import sd15_config
+    from diffusionspatialcontrol_tpu_torch.ops.attention import (
+        logits_std_gram_nlhd,
+        region_bias,
+    )
+    from diffusionspatialcontrol_tpu_torch.ops.kernels import flash_attention as k2
+    from diffusionspatialcontrol_tpu_torch.ops.kernels import region_attention as k1
+    from diffusionspatialcontrol_tpu_torch.samplers.schedules import get_sigmas
+
+    level0 = attention_levels(sd15_config(), *LARGE)[0]
+    sigma = torch.tensor(float(get_sigmas(sd15_config(), STEPS,
+                                          "karras")[0]), device=dev)
+    cases = [("K1 large", BATCH, level0[0], TEXT, level0[2])]
+    for side in (512, 768):
+        l0 = (side // 8) ** 2
+        cases += [("K1 b4", 2 * B4, l0, TEXT, LEVELS[0][2]),
+                  ("K2 b4", 2 * B4, l0, l0, LEVELS[0][2]),
+                  ("K2 b4 cross", 2 * B4, l0, TEXT, LEVELS[0][2])]
+    rows, errs = {"K1": [], "K2": []}, {"K1": [0.0, 0.0], "K2": [0.0, 0.0]}
+    d = LEVELS[0][1]
+    for name, b, l, s_len, n in cases:
+        kern = name[:2]
+        tag = f"{name} B={b} L={l} S={s_len} H={HEADS} D={d}"
+        q, k, v = _qkv(g, b, l, s_len, HEADS, d, torch.float32, dev)
+        if name == "K1 large":
+            w = region_bias(large_region_state(dev)[0], sigma,
+                            logits_std_gram_nlhd(q, k, d ** -0.5))
+        else:
+            w = torch.randn(b, l, s_len, generator=g, device=dev)
+        if kern == "K1":
+            def run(q, k, v, w=w):
+                return k1.region_softmax_attention(q, k, v, w)
+
+            def plain(q, k, v, w=w):
+                return by_query_rows(k1.region_softmax_attention_plain, q, k,
+                                     v, w)
+        else:
+            run = k2.flash_attention_nlhd
+
+            def plain(q, k, v):
+                return by_query_rows(k2.flash_attention_plain, q, k, v)
+        e32 = check_close(f"{tag} fp32", run(q, k, v), plain(q, k, v),
+                          2e-4, 2e-5)
+        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+        del q, k, v
+        want = plain(*(t.float() for t in (qb, kb, vb)))
+        e16 = check_close(f"{tag} bf16", run(qb, kb, vb), want, 1e-2,
+                          0.05 * rms(want))
+        del want
+        errs[kern] = [max(errs[kern][0], e32), max(errs[kern][1], e16)]
+        mask = w[:, None].to(torch.bfloat16) if kern == "K1" else None
+        ms = timer(lambda: run(qb, kb, vb), reps=5)
+        plain_ms = timer(lambda: plain(qb, kb, vb), reps=1, warmup=1)
+        lib_ms = timer(lambda: sdpa(qb, kb, vb, mask), reps=5)
+        b_ms, t_bytes, t_ops = bound(b, HEADS, l, s_len, d, torch.bfloat16,
+                                     kern == "K1")
+        rows[kern].append({
+            "model": "sd15 1088x1920" if "large" in name else "sd15 batch 4",
+            "B": b, "L": l, "S": s_len, "H": HEADS, "D": d,
+            "per_unet_call": n, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": 1e3 * t_bytes, "operations_ms": 1e3 * t_ops,
+            "max_abs_err_fp32": e32, "max_abs_err_bf16": e16})
+        log(f"kernels: {tag}: fp32 err {e32:.2e}, bf16 err {e16:.2e}; "
+            f"bf16 {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
+            f"ms, bound {b_ms:.4f} ms ({rows[kern][-1]['bound_by']}), exps "
+            f"{exp_ms(b, HEADS, l, s_len):.4f} ms")
+        del qb, kb, vb, w, mask
+    return rows, errs
 
 
 def conv_bound(b, h, w, c_in, c_out, temb, skip):
@@ -907,26 +1047,23 @@ def unit_controlnet(unet_cfg, seed: int, device, dtype, rms: float):
     return p
 
 
-def cn_attentions(cfg) -> tuple:
-    """(attentions of one ControlNet call, of them at level 0): two a
-    transformer (self and cross) in its down blocks and its mid block."""
+def cn_attentions(cfg) -> int:
+    """The attentions of one ControlNet call: two a transformer (self and
+    cross) in its down blocks and its mid block."""
     u = cfg.unet
     per_level = u.layers_per_block * u.transformer_layers_per_block
-    n = per_level * sum(u.attn_levels) + u.transformer_layers_per_block
-    return 2 * n, per_level if u.attn_levels[0] else 0
+    return 2 * (per_level * sum(u.attn_levels)
+                + u.transformer_layers_per_block)
 
 
 def _with_text_bias(params, seed: int):
-    """The random init with a random final LayerNorm bias in CLIP. The
-    init's zero bias leaves every text embedding row with a mean of 0 up to
-    rounding, and the "a1111" and "long" modes divide by such means (their
-    weighting restores the embedding's mean); trained weights have a
-    nonzero bias."""
-    norm = params["clip"]["final_layer_norm"]
-    g = torch.Generator().manual_seed(seed)
-    bias = 0.5 * torch.randn(norm["bias"].shape, generator=g)
-    norm["bias"] = bias.to(norm["bias"].dtype).to(norm["bias"].device)
-    return params
+    """``models.factory.with_text_bias``: a random CLIP final LayerNorm
+    bias, which the "a1111" and "long" modes need on random weights."""
+    from diffusionspatialcontrol_tpu_torch.models.factory import (
+        with_text_bias,
+    )
+
+    return with_text_bias(params, seed)
 
 
 class UNetCalls:
@@ -999,15 +1136,46 @@ def _wrappers():
             "K4": kc.gn_silu_conv3x3, "K5": kc.gn_silu_conv3x3_v2}
 
 
+def jax_streams(s_len: int, d: int) -> bool:
+    """Whether the JAX package's ``flash_attention_nlhd`` leaves its
+    single-pass kernel for the streaming K3 at ``s_len`` keys of head dim
+    ``d``: K/V, a 128-row fp32 logits tile and the q/out tile exceed its
+    12 MiB VMEM budget (ops/pallas/flash_attention.py:140-156), so S > 12160
+    at D <= 128 and S > 7936 at D = 160."""
+    d_pad, s_pad = -(-d // 128) * 128, -(-s_len // 128) * 128
+    return (2 * s_pad * d_pad * 2 + 128 * s_pad * 4 + 128 * d_pad * 8
+            > 12 * 2 ** 20)
+
+
+def attention_levels(cfg, height: int, width: int):
+    """(L, D, transformers of one UNet call, of one ControlNet call) at each
+    UNet level of a height x width request: the latent h/8 x w/8, halved
+    (ceil) a level; the down blocks' and the up blocks' transformers at
+    levels with attention, and the mid block's at the last level."""
+    u = cfg.unet
+    tpb = u.transformer_layers_per_block
+    size, out = (height // 8, width // 8), []
+    for lv, c in enumerate(u.block_out_channels):
+        down = u.layers_per_block * tpb if u.attn_levels[lv] else 0
+        up = (u.layers_per_block + 1) * tpb if u.attn_levels[lv] else 0
+        mid = tpb if lv == u.num_levels - 1 else 0
+        out.append((size[0] * size[1], c // u.heads_at(lv), down + up + mid,
+                    down + mid))
+        size = (-(-size[0] // 2), -(-size[1] // 2))
+    return out
+
+
 def _counts():
     """Launches so far of K1, K2, K4 and K5; "K3": K2's launches at the
-    shape where the JAX package streams (L = S = 16384, D = 40); "K4b": K4's
-    launches at the shapes the JAX package sends to its row-tiled body;
-    "K1 S=154" and "K2 S=154": launches on a context of two prompt chunks."""
+    shapes where the JAX package streams (``jax_streams``: the level-0
+    self-attentions at 1024^2, L = S = 16384, and at 1920x1088, L = S =
+    32640); "K4b": K4's launches at the shapes the JAX package sends to its
+    row-tiled body; "K1 S=154" and "K2 S=154": launches on a context of two
+    prompt chunks."""
     w = _wrappers()
     c = {name: fn.launches for name, fn in w.items()}
-    c["K3"] = w["K2"].shapes[(K3_SHAPES[0][0], K3_SHAPES[0][0],
-                              K3_SHAPES[0][1])]
+    c["K3"] = sum(n for (_, s, d), n in w["K2"].shapes.items()
+                  if jax_streams(s, d))
     c["K4b"] = sum(n for (_, h, ww, _, _), n in w["K4"].shapes.items()
                    if jax_sends_to_k4b(h, ww))
     for name in ("K1", "K2"):
@@ -1026,39 +1194,41 @@ def want_launches(cfg, size, calls, spatial, conv_impl, hires_calls=0,
                   text_s=TEXT, encodes=0, controlnets=0, ip_adapters=0,
                   ip_once=0):
     """The exact launches of one request: ``encodes`` VAE encodes of a
-    ``size`` image, ``calls`` UNet calls at ``size``, then ``hires_calls``
-    at twice the size, one decode at the last size, on a context of
-    ``text_s`` positions; each UNet call with ``controlnets`` ControlNet
-    calls, all of whose attentions (self and cross, no map) are K2's, and
-    one decoupled attention (K2) a cross-attention for each of
-    ``ip_adapters`` IP-Adapters; ``ip_once``: the K2 launches of the
-    image tower and the Resampler, once a request (``ip_tower_launches``)."""
-    runs = [(size, calls)] + ([(2 * size, hires_calls)] if hires_calls
-                              else [])
+    ``size`` image (``side`` or ``(height, width)``), ``calls`` UNet calls
+    at ``size``, then ``hires_calls`` at twice the size, one decode at the
+    last size, on a context of ``text_s`` positions; each UNet call with
+    ``controlnets`` ControlNet calls, all of whose attentions (self and
+    cross, no map) are K2's, and one decoupled attention (K2) a
+    cross-attention for each of ``ip_adapters`` IP-Adapters; ``ip_once``:
+    the K2 launches of the image tower and the Resampler, once a request
+    (``ip_tower_launches``). K3 counts the self-attentions among K2's
+    launches where the JAX package streams (``jax_streams``)."""
+    h, w = (size, size) if isinstance(size, int) else size
+    runs = [((h, w), calls)] + ([((2 * h, 2 * w), hires_calls)]
+                                if hires_calls else [])
     n = calls + hires_calls
-    level0 = (2 * size // 8) ** 2
-    cn_attn, cn_level0 = cn_attentions(cfg)
+    cn_attn = cn_attentions(cfg)
     want = {"K1": PER_UNET * n if spatial else 0,
             "K2": PER_UNET * n * (1 if spatial else 2)
             + cn_attn * controlnets * n + PER_UNET * ip_adapters * n
             + ip_once,
-            "K3": (LEVELS[0][2] + cn_level0 * controlnets) * hires_calls
-            if level0 == K3_SHAPES[0][0] else 0,
+            "K3": sum(k * (n_unet + n_cn * controlnets)
+                      for hw, k in runs
+                      for l, d, n_unet, n_cn in attention_levels(cfg, *hw)
+                      if jax_streams(l, d)),
             "K4": 0, "K5": 0, "K4b": 0,
             f"K1 S={CHUNKED}": 0, f"K2 S={CHUNKED}": 0}
     if text_s == CHUNKED:
         want[f"K{1 if spatial else 2} S={CHUNKED}"] = PER_UNET * n
         want[f"K2 S={CHUNKED}"] += cn_attn // 2 * controlnets * n
     if conv_impl in ("pallas", "pallas2"):
-        fused = [sh for sz, k in runs
-                 for sh in resnet_conv_shapes(cfg, sz, sz) * k
+        fused = [sh for hw, k in runs
+                 for sh in resnet_conv_shapes(cfg, *hw) * k
                  if sh[0] == "unet"]
-        last = runs[-1][0]
-        fused += [sh for sh in resnet_conv_shapes(cfg, last, last)
+        fused += [sh for sh in resnet_conv_shapes(cfg, *runs[-1][0])
                   if sh[0] == "vae"]
-        fused += [sh for sh in resnet_conv_shapes(cfg, size, size,
-                                                  encoder=True) * encodes
-                  if sh[0] == "vae_enc"]
+        fused += [sh for sh in resnet_conv_shapes(cfg, h, w, encoder=True)
+                  * encodes if sh[0] == "vae_enc"]
         want["K4" if conv_impl == "pallas" else "K5"] = len(fused)
         if conv_impl == "pallas":
             want["K4b"] = sum(jax_sends_to_k4b(sh[2], sh[3]) for sh in fused)
@@ -1144,7 +1314,7 @@ def _gen_for(name, **kw):
 
 def _tiny_cases():
     """(label, conv_impl, spatial, hires, sampler name, prompt mode,
-    chunked): the requests of the tiny phase."""
+    chunked, (height, width)): the requests of the tiny phase."""
     base = [("spatial", "xla", True, None, "DPM++ 2M Karras", "short", False),
             ("vanilla", "xla", False, None, "DPM++ 2M Karras", "short",
              False),
@@ -1176,7 +1346,11 @@ def _tiny_cases():
         name = name if name in SAMPLERS else plain
         base.append((f"sampler {name}", "xla", True, None, name, "short",
                      False))
-    return base
+    # a non-square size whose deepest level has an odd side (16 x 24
+    # latents: 2 x 3), as 1088 x 1920 has (136 x 240: 17 x 30)
+    return [case + ((64, 64),) for case in base] + [
+        ("spatial 128x192", "xla", True, None, "DPM++ 2M Karras", "short",
+         False, (128, 192))]
 
 
 def phase_tiny(ctx):
@@ -1213,11 +1387,11 @@ def phase_tiny(ctx):
     params = _with_text_bias(init_pipeline_params(0, cfg, torch.float32,
                                                   device=cpu), 0)
     on = {cpu.type: params, "cuda": _tree_to(params, ctx["device"])}
-    lat = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        (1, 8, 8, 4)).astype(np.float32))
-    for label, conv_impl, spatial, hires, sampler, mode, chunked in \
-            _tiny_cases():
-        gen = _gen_for(sampler, height=64, width=64, num_inference_steps=4,
+    for label, conv_impl, spatial, hires, sampler, mode, chunked, (h, w) \
+            in _tiny_cases():
+        lat = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (1, h // 8, w // 8, 4)).astype(np.float32))
+        gen = _gen_for(sampler, height=h, width=w, num_inference_steps=4,
                        dtype=torch.float32)
         prompt = PROMPT if mode == "short" else LONG_PROMPT
         out, calls = {}, {}
@@ -1226,13 +1400,12 @@ def phase_tiny(ctx):
                                         tokenizer=HashTokenizer(),
                                         conv_impl=conv_impl, device=kind)
             c, ids = pipe.encode_prompt([prompt], [NEG], mode=mode)
-            rb = (pipe.encode_region([_masks(64, 64)], ids, 64, 64)
+            rb = (pipe.encode_region([_masks(h, w)], ids, h, w)
                   if spatial else None)
             if mode == "long":
                 try:
                     pipe.txt2img(c, gen, latents=lat, region_biases=pipe.
-                                 encode_region([_masks(64, 64)], ids, 64,
-                                               64))
+                                 encode_region([_masks(h, w)], ids, h, w))
                 except ValueError:
                     pass
                 else:
@@ -1241,7 +1414,7 @@ def phase_tiny(ctx):
             opts = None
             if hires is not None:
                 opts = dict(hires, scale=2.0, strength=0.6,
-                            region_state=([_masks(64, 64)], ids, 1))
+                            region_state=([_masks(h, w)], ids, 1))
             before = _counts()
             with UNetCalls() as n:
                 img = pipe.txt2img(c, gen, latents=lat, region_biases=rb,
@@ -1262,7 +1435,7 @@ def phase_tiny(ctx):
                             f"{float((resumed - img).abs().max()):.3e}")
             got = _delta(_counts(), before)
             calls[kind] = n.n
-            want = (want_launches(cfg, 64, n.n, spatial, conv_impl,
+            want = (want_launches(cfg, (h, w), n.n, spatial, conv_impl,
                                   text_s=c.shape[1]) if kind == "cuda"
                     else dict.fromkeys(got, 0))
             if got != want:
@@ -1272,8 +1445,8 @@ def phase_tiny(ctx):
         if calls["cpu"] != calls["cuda"]:
             log(f"tiny: {label}: {calls['cuda']} UNet calls on the card, "
                 f"{calls['cpu']} on the CPU")
-        side = 128 if hires is not None else 64
-        if out["cuda"].shape != (1, side, side, 3):
+        scale = 2 if hires is not None else 1
+        if out["cuda"].shape != (1, scale * h, scale * w, 3):
             raise AssertionError(f"tiny {label}: image {out['cuda'].shape}")
         err = check_close(f"tiny {label}", out["cuda"], out["cpu"], 0.0, 2e-4)
         u8 = [StableDiffusionTorch.to_uint8(out[k]).int()
@@ -1951,6 +2124,131 @@ def phase_main(ctx):
         raise AssertionError("main: a kernel of the path never launched")
 
 
+def phase_large(ctx):
+    """The JAX package's large requests on SD1.5 at full width (main's
+    random bf16 weights from seed 0), 25 DPM++ 2M Karras steps, CFG 7.5,
+    decoded to uint8, each through ``StableDiffusionTorch.txt2img``:
+    ``large_spatial`` (1088 x 1920, ``large_state``'s one-phrase map:
+    benchmarks/bench_large.py), ``b4_vanilla`` (512^2, seeds s..s+3, no map:
+    bench.py:157-166), ``b4_spatial`` (the same with main's two-phrase map
+    for each sample) and ``b4_768_vanilla`` (768^2, bench.py:169-179). Each
+    request's images are finite, its denoiser calls free of host reads and
+    its launches exact (K3: K2's 125 level-0 self-attentions of
+    ``large_spatial`` at L = S = 32640); the p50 s/image after one warm-up
+    and the card's peak allocation by type; ``large_spatial``'s region
+    state on the card equal to the CPU's; then ``large_spatial`` once
+    through ``app.api.inference()`` (a ``ModelManager`` with the same random
+    weights), whose uint8 image must have its shape, vary, and equal the
+    pipeline's for that seed bit for bit. Each type is profiled by its
+    kernels at the start of the queued profiles."""
+    from diffusionspatialcontrol_tpu_torch import GenerationConfig, sd15_config
+    from diffusionspatialcontrol_tpu_torch.app import api
+    from diffusionspatialcontrol_tpu_torch.models.factory import (
+        init_pipeline_params,
+    )
+    from diffusionspatialcontrol_tpu_torch.ops.region_map import (
+        LEVEL_RATIOS,
+        level_shape,
+    )
+    from diffusionspatialcontrol_tpu_torch.pipeline.pipeline import (
+        StableDiffusionTorch,
+    )
+    from diffusionspatialcontrol_tpu_torch.text.tokenizer import load_tokenizer
+
+    cfg = sd15_config()
+    params = ctx.get("sd15_params")
+    if params is None:
+        params = _with_text_bias(init_pipeline_params(0, cfg,
+                                                      torch.bfloat16), 0)
+        ctx["sd15_params"] = params
+    ctx.setdefault("launches", {})
+    ctx.setdefault("p50", {})
+    ctx.setdefault("seconds", {})
+    pipe = StableDiffusionTorch(cfg, params, tokenizer=load_tokenizer())
+    h, w = LARGE
+    c1, ids1 = pipe.encode_prompt([PROMPT], [NEG], clip_skip=2)
+    c4, ids4 = pipe.encode_prompt([PROMPT] * B4, [NEG] * B4, clip_skip=2)
+    state = large_state(h, w)
+    rb_large = pipe.encode_region([state], ids1, height=h, width=w)
+    for r, got, want in zip(LEVEL_RATIOS, rb_large, large_region_state(None)):
+        shape = (BATCH, int(np.prod(level_shape(h, w, r))), TEXT)
+        if tuple(got.shape) != shape or got.device.type != "cuda" or \
+                not torch.equal(got.cpu(), want):
+            raise AssertionError(f"large: the region state at ratio {r}: "
+                                 f"{tuple(got.shape)} on {got.device}, not "
+                                 f"the CPU's {shape}")
+    log(f"large: large_spatial's region state on the card equals the CPU's "
+        f"at every level: {[tuple(t.shape) for t in rb_large]}")
+    rb4 = pipe.encode_region([_masks(512, 512)] * B4, ids4, height=512,
+                             width=512)
+    batches = [list(range(i, i + B4)) for i in range(0, 4 * B4, B4)]
+    requests = (  # (type, (H, W), context, biases, seeds: a warm-up first)
+        ("large_spatial", LARGE, c1, rb_large, [0, 1, 2, 3]),
+        ("b4_vanilla", (512, 512), c4, None, batches),
+        ("b4_spatial", (512, 512), c4, rb4, batches),
+        ("b4_768_vanilla", (768, 768), c4, None, batches[:3]),
+    )
+    first = {}
+    for kind, (hh, ww), ctx_, rb, seeds in requests:
+        gen = GenerationConfig(height=hh, width=ww,
+                               num_inference_steps=STEPS, guidance_scale=7.5,
+                               sampler="dpmpp_2m", schedule="karras")
+
+        def run(seed, gen=gen, ctx_=ctx_, rb=rb):
+            return pipe.txt2img(ctx_, gen, seed=seed, region_biases=rb)
+
+        alloc0 = torch.cuda.memory_allocated() / 1e9
+        first[kind] = serve(ctx, kind, run, seeds, STEPS,
+                            want_launches(cfg, (hh, ww), STEPS,
+                                          rb is not None, "xla"),
+                            (hh, ww), strict=True, phase="large")
+        log(f"large: {kind}: p50 {ctx['p50'][kind]:.4f} s/image, the "
+            f"card's peak allocation {ctx['peak_gb'][kind]:.2f} GB "
+            f"({alloc0:.2f} GB allocated before), "
+            f"{ctx['seconds'][kind]:.1f} s for {len(seeds)} requests")
+        defer_profile(ctx, lambda run=run, seed=seeds[0]: run(seed), kind,
+                      early=True, batch=len(seeds[0])
+                      if isinstance(seeds[0], list) else 1)
+    # large_spatial as a user of the app sends it
+    manager = api.ModelManager()
+    manager.register_random("sd15", cfg, seed=0)
+    _with_text_bias(manager._cache["sd15"], 0)
+    before = _counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with UNetCalls() as n:
+        out = api.inference(
+            manager, prompt=PROMPT, neg_prompt=NEG, model="sd15",
+            sampler="DPM++ 2M Karras", steps=STEPS, cfg_scale=7.5, width=w,
+            height=h, seed=0, encoding_mode="short", region_state=state)
+    dt = time.perf_counter() - t0
+    launches = _delta(_counts(), before)
+    want = want_launches(cfg, LARGE, STEPS, True, "xla")
+    img = np.asarray(out["images"])
+    if n.n != STEPS or launches != want:
+        raise AssertionError(f"large: inference(): {n.n} UNet calls, "
+                             f"launches {launches}; expected {STEPS}, {want}")
+    if img.shape != (1, h, w, 3) or img.dtype != np.uint8 or \
+            int(img.max()) == int(img.min()):
+        raise AssertionError(f"large: inference() image {img.shape} "
+                             f"{img.dtype}, values {img.min()}..{img.max()}")
+    if not np.array_equal(img, first["large_spatial"].numpy()):
+        raise AssertionError(
+            f"large: inference()'s image differs from txt2img's by up to "
+            f"{np.abs(img.astype(int) - first['large_spatial'].numpy()).max()}"
+            f" uint8 steps")
+    log(f"large: large_spatial by inference(): {dt:.3f} s, {n.n} UNet "
+        f"calls, launches { {k: v for k, v in launches.items() if v} }, "
+        f"image {img.shape} mean {img.mean():.2f} std {img.std():.2f}, "
+        f"equal to txt2img's bit for bit; timings {out['timings']}")
+    del manager, out
+    log("large: p50 s/image after one warm-up: " + ", ".join(
+        f"{k} {ctx['p50'][k]:.4f}" for k, *_ in requests)
+        + "; peak allocation (GB): " + ", ".join(
+            f"{k} {ctx['peak_gb'][k]:.2f}" for k, *_ in requests)
+        + f" (card: {card_line()})")
+
+
 MODE_SEEDS = [0, 1, 2, 3, 4, 5]  # phase modes: a warm-up, then 5 timed
 
 
@@ -2444,19 +2742,24 @@ def ip_gate_cache_launches(unet_p, cfg, mask, size):
 
 def serve(ctx, kind, run, seeds, calls, want, side, strict=False,
           phase="main"):
-    """Serve ``run(seed)`` (fp32 images) once a seed, the first request a
-    warm-up, each followed by the uint8 copy to the host. Checks each
-    request's UNet calls, exact launches and images; records the p50
-    seconds per image of the timed ones. ``strict``: the denoiser's calls
-    may not read from the card (``NoHostReads``). The launch counts are set
-    to 0 before the first request and read after the last:
-    ``ctx["launches"]`` sums them over the request types, the main path's
-    launches. ``phase`` names the phase in the log lines."""
+    """Serve ``run(seed)`` (fp32 images of ``side`` x ``side``, or of
+    ``side`` = (height, width)) once a seed, the first request a warm-up,
+    each followed by the uint8 copy to the host. Checks each request's UNet
+    calls, exact launches and images; records the p50 seconds per image of
+    the timed ones and the card's peak allocation over the requests
+    (``ctx["peak_gb"]``). ``strict``: the denoiser's calls may not read
+    from the card (``NoHostReads``). The launch counts are set to 0 before
+    the first request and read after the last: ``ctx["launches"]`` sums
+    them over the request types, the main path's launches. ``phase`` names
+    the phase in the log lines. Returns the first request's uint8 images
+    (on the host)."""
     from diffusionspatialcontrol_tpu_torch.pipeline.pipeline import to_uint8
 
+    h, w = (side, side) if isinstance(side, int) else side
     _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
     t_kind = time.perf_counter()
-    per_image = []
+    per_image, first = [], None
     for i, seed in enumerate(seeds):
         batch = len(seed) if isinstance(seed, list) else 1
         before = _counts()
@@ -2473,14 +2776,14 @@ def serve(ctx, kind, run, seeds, calls, want, side, strict=False,
         if launches != want:
             raise AssertionError(f"{phase} {kind} seed {seed}: launches "
                                  f"{launches}, expected {want}")
-        if tuple(img.shape) != (batch, side, side, 3) or \
+        if tuple(img.shape) != (batch, h, w, 3) or \
                 img.dtype != torch.float32:
             raise AssertionError(f"{phase} {kind}: image {tuple(img.shape)} "
                                  f"{img.dtype}")
         if not bool(torch.isfinite(img).all()):
             raise AssertionError(f"{phase} {kind} seed {seed}: non-finite "
                                  f"image")
-        if tuple(u8.shape) != (batch, side, side, 3) or \
+        if tuple(u8.shape) != (batch, h, w, 3) or \
                 u8.dtype != torch.uint8:
             raise AssertionError(f"{phase} {kind}: uint8 {tuple(u8.shape)}")
         if not np.array_equal(u8.numpy(), u8_reference(img.cpu())):
@@ -2493,10 +2796,15 @@ def serve(ctx, kind, run, seeds, calls, want, side, strict=False,
             f"{float(img.mean()):+.4f} std {float(img.std()):.4f}")
         if i:
             per_image.append(dt / batch)
+        else:
+            first = u8
     for k, v in _counts().items():
         ctx["launches"][k] = ctx["launches"].get(k, 0) + v
     ctx["p50"][kind] = float(np.median(per_image))
     ctx["seconds"][kind] = time.perf_counter() - t_kind
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ctx.setdefault("peak_gb", {})[kind] = peak
+    return first
 
 
 def main_other_models(ctx, gen, state, init, mask):
@@ -3959,9 +4267,8 @@ def phase_weights(ctx):
     the trigger word; an "IP-Adapter Plus" file with the published depth-4
     Resampler (``spatial_ip_plus_masked`` from the file, through the
     manager's ViT-H/14 tower) and a ControlNet file (its leaves checked,
-    its image equal to the drawn ControlNet's); and the spatial request on
-    the loaded values with the random init's strides for the 1x1 kernels,
-    profiled beside the loaded tree's at the end. Prints the seconds to write
+    its image equal to the drawn ControlNet's); the spatial request
+    profiled at the end. Prints the seconds to write
     and read each file, to convert and restore, the host's peak RSS and the
     card's peak allocation, and the requests' p50s; the files go into a
     temporary directory that is removed at the end."""
@@ -4255,37 +4562,17 @@ def _weights(ctx, root):
     log(f"weights: ControlNet file ({os.path.getsize(cn_file) / 1e9:.3f} GB "
         f"fp16, written in {cn_write:.2f} s, loaded in {cn_load:.2f} s): "
         f"{n_cn} leaves equal to the drawn ones, its image equal to theirs")
-    # 6. the loaded tree's layouts against the random init's: a converted
-    # 1x1 kernel has channels_last strides, the init's the contiguous ones
-    # (either tensor is contiguous in both formats, so .contiguous() keeps
-    # its strides: a copy into a fresh tensor sets them); the same values
-    # in both, profiled at the end of the run
-    init_strides = _tree_map(
-        lambda t: torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
-        if t.dim() == 4 and t.shape[2:] == (1, 1) else t, loaded)
-    k = init_strides["unet"]["down_blocks"][0]["attentions"][0]["proj_in"][
-        "kernel"]
-    if k.stride() != (k.shape[1], 1, 1, 1):
-        raise AssertionError(f"weights: a 1x1 kernel's strides {k.stride()}")
-    pipe_i = StableDiffusionTorch(cfg, init_strides, tokenizer=tok)
-    serve(ctx, "weights_spatial_init_strides",
-          lambda seed: pipe_i.txt2img(c1, gen, seed=seed, region_biases=rb1),
-          [0, 1, 2], STEPS, spatial, 512)
-    same = torch.equal(to_uint8(pipe_i.txt2img(c1, gen, seed=0,
-                                               region_biases=rb1)).cpu(),
-                       plain)
-    log(f"weights: the loaded tree with the init's 1x1-kernel strides gives "
-        f"{'the same' if same else 'another'} uint8 image")
     defer_profile(ctx, lambda: pipe.txt2img(c1, gen, seed=99,
                                             region_biases=rb1),
                   "weights_spatial")
+    peak = max(v for k, v in ctx["peak_gb"].items()
+               if k.startswith("weights_"))
     log(f"weights: p50 s/image after one warm-up: " + ", ".join(
         f"{k} {ctx['p50'][k]:.4f}" for k in (
             "weights_spatial", "weights_pallas2", "weights_lora_ti",
-            "weights_ip_plus4_masked", "weights_controlnet",
-            "weights_spatial_init_strides"))
+            "weights_ip_plus4_masked", "weights_controlnet"))
         + f"; host peak RSS {_maxrss_gb():.2f} GB, the card's peak "
-        f"allocation {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; the "
+        f"allocation over the requests {peak:.2f} GB; the "
         f"phase's requests served and checked in "
         f"{time.perf_counter() - t_phase:.1f} s (card: {card_line()})")
 
@@ -4303,13 +4590,21 @@ KERNEL_GROUPS = (  # (group, test on the lower-cased kernel name)
 )
 
 
-def defer_profile(ctx, run, kind, host_ops=False):
-    """Queue a ``profile_request`` of ``run`` for the end of the run, beside
-    the p50 that ``serve`` records for ``kind``. A torch.profiler run (with
-    the host's ops most of all) leaves the host slower at launching for the
-    rest of the process (PERF.md), so every timed request comes before the
-    first profile."""
-    ctx.setdefault("profiles", []).append((run, kind, host_ops))
+def defer_profile(ctx, run, kind, host_ops=False, early=False, batch=1):
+    """Queue a ``profile_request`` of ``run`` (``batch`` images) for the end
+    of the run, beside the p50 that ``serve`` records for ``kind``. A
+    torch.profiler run (with the host's ops most of all) leaves the host
+    slower at launching for the rest of the process (PERF.md), so every
+    timed request comes before the first profile. ``early``: right after
+    the first queued profile and the earlier ``early`` ones, so that it
+    runs before the deadline."""
+    profiles = ctx.setdefault("profiles", [])
+    item = (run, kind, host_ops, batch)
+    if early:
+        ctx["early"] = ctx.get("early", 0) + 1
+        profiles.insert(ctx["early"], item)
+    else:
+        profiles.append(item)
 
 
 def run_deferred_profiles(ctx):
@@ -4321,18 +4616,19 @@ def run_deferred_profiles(ctx):
     profiles = ctx.pop("profiles", [])
     t0 = time.perf_counter()
     skipped = []
-    for run, kind, host_ops in profiles:
+    for run, kind, host_ops, batch in profiles:
         if time.perf_counter() - ctx["t_start"] > PROFILE_DEADLINE_S:
             skipped.append(kind)
             continue
-        profile_request(run, kind, ctx["p50"][kind], host_ops=host_ops)
+        profile_request(run, kind, ctx["p50"][kind], host_ops=host_ops,
+                        batch=batch)
     log(f"profiles: {len(profiles) - len(skipped)} requests profiled in "
         f"{time.perf_counter() - t0:.1f} s"
         + (f"; not profiled, past {PROFILE_DEADLINE_S:.0f} s since the "
            f"start: {', '.join(skipped)}" if skipped else ""))
     for fn in ctx.pop("deferred", []):
         fn()
-    run, kind, _ = profiles[0]
+    run, kind, *_ = profiles[0]
     seconds = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -4344,11 +4640,12 @@ def run_deferred_profiles(ctx):
         f"{ctx['p50'][kind]:.4f} before the first profile")
 
 
-def profile_request(run, kind, p50_s, host_ops=True):
-    """One batch-1 request, ``run()`` (fp32 images) and their uint8 copy to
-    the host, under torch.profiler: the device's busy time (sum
-    of kernel times) against the request's unprofiled p50 wall time, kernel
-    launches, and device time by kernel group and by kernel. The profiler's
+def profile_request(run, kind, p50_s, host_ops=True, batch=1):
+    """One request of ``batch`` images, ``run()`` (fp32 images) and their
+    uint8 copy to the host, under torch.profiler: the device's busy time
+    (sum of kernel times) against the request's unprofiled p50 wall time
+    (``p50_s`` a image), kernel launches, and device time by kernel group
+    and by kernel. The profiler's
     own cost on the host inflates the profiled wall time, so the busy share
     is taken against the p50. With ``host_ops`` the host's ops are
     recorded too; without, the kernels only, which take a third of the
@@ -4375,10 +4672,11 @@ def profile_request(run, kind, p50_s, host_ops=True):
     for name, (us, _) in kernels.items():
         group = next(g for g, test in KERNEL_GROUPS if test(name.lower()))
         groups[group] += us / 1e3
+    p50_ms = 1e3 * p50_s * batch
     log(f"profile: {kind}{'' if host_ops else ' (kernels only)'}: device "
         f"busy {busy_ms:.1f} ms = "
-        f"{100 * busy_ms / (1e3 * p50_s):.1f}% of the p50 wall "
-        f"({1e3 * p50_s:.1f} ms; {wall_ms:.1f} ms profiled), {count} kernel "
+        f"{100 * busy_ms / p50_ms:.1f}% of the p50 wall "
+        f"({p50_ms:.1f} ms; {wall_ms:.1f} ms profiled), {count} kernel "
         f"launches; by group (ms): " + ", ".join(
             f"{g} {t:.1f}" for g, t in groups.items())
         + f"; profiled and summed in {time.perf_counter() - t_all:.1f} s")
@@ -4414,8 +4712,9 @@ KERNEL_LINE = {  # name, source, what "ms" and the other times are per
            "bf16, cold L2; library = scaled_dot_product_attention"),
     "K3": ("K3 flash_attention at the streaming shapes", "flash_attention.cu",
            "one launch at B=2, L=S=16384, H=8, D=40 (the hires pass's "
-           "level-0 self-attention), bf16, cold L2; launches = K2's at that "
-           "shape; library = scaled_dot_product_attention"),
+           "level-0 self-attention), bf16, cold L2; launches = K2's where "
+           "the JAX package streams (L=S=16384 and, in large_spatial, "
+           "32640); library = scaled_dot_product_attention"),
     "K4": ("K4 conv_fused", "conv_fused.cu",
            "the 44 launches of one SD1.5 512^2 UNet call, bf16, cold L2; "
            "library = cuDNN conv2d+bias on the pre-activated input"),
@@ -4498,8 +4797,8 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     run = {"build": phase_build, "kernels": phase_kernels,
-           "tiny": phase_tiny, "main": phase_main, "modes": phase_modes,
-           "weights": phase_weights, "app": phase_app,
+           "tiny": phase_tiny, "main": phase_main, "large": phase_large,
+           "modes": phase_modes, "weights": phase_weights, "app": phase_app,
            "multi": phase_multi, "preprocess": phase_preprocess}
     t_all = ctx["t_start"] = time.perf_counter()
     for name in PHASES:

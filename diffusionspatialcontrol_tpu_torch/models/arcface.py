@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.resize import resize
+from .layers import as_channels_last
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,8 +81,8 @@ def _affine_init(c, dtype, device):
 def _conv_init(g, in_c, out_c, k, dtype, device):
     t = torch.empty((out_c, in_c, k, k), dtype=torch.float32, device=device)
     t.normal_(generator=g)
-    return {"kernel": (t / math.sqrt(in_c * k * k)).to(dtype).contiguous(
-        memory_format=torch.channels_last)}
+    return {"kernel": as_channels_last((t / math.sqrt(in_c * k * k)).to(
+        dtype))}
 
 
 def arcface_init(g: torch.Generator, cfg: ArcFaceConfig = ArcFaceConfig(),
@@ -148,8 +149,7 @@ def _bn_affine(sd, key, dtype, device, eps=1e-5):
 
 def _conv_w(sd, key, dtype, device):
     w = torch.tensor(_get(sd, f"{key}.weight"))  # OIHW, as torch stores it
-    return {"kernel": w.to(dtype=dtype, device=device).contiguous(
-        memory_format=torch.channels_last)}
+    return {"kernel": as_channels_last(w.to(dtype=dtype, device=device))}
 
 
 def convert_arcface(sd, cfg: ArcFaceConfig = ArcFaceConfig(),

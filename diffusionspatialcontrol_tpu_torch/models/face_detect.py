@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.resize import resize
+from .layers import as_channels_last
 
 # The published ArcFace 5-point destination template for a 112x112 crop
 # (insightface face_align.arcface_dst): left eye, right eye, nose tip,
@@ -89,8 +90,8 @@ def _bn(p, x):
 def _conv_init(g, cin, cout, ksize, dtype, device, bias=False):
     t = torch.empty((cout, cin, ksize, ksize), dtype=torch.float32,
                     device=device).normal_(generator=g)
-    p = {"kernel": (t * np.sqrt(2.0 / (ksize * ksize * cin))).to(
-        dtype).contiguous(memory_format=torch.channels_last)}
+    p = {"kernel": as_channels_last(
+        (t * np.sqrt(2.0 / (ksize * ksize * cin))).to(dtype))}
     if bias:
         p["bias"] = torch.zeros(cout, dtype=dtype, device=device)
     return p
@@ -458,8 +459,7 @@ def convert_scrfd(state: Dict[str, np.ndarray],
                                                           device=device)
 
     def conv(prefix, bias=False):
-        p = {"kernel": t(state[f"{prefix}.weight"]).contiguous(
-            memory_format=torch.channels_last)}
+        p = {"kernel": as_channels_last(t(state[f"{prefix}.weight"]))}
         if bias and f"{prefix}.bias" in state:
             p["bias"] = t(state[f"{prefix}.bias"])
         return p

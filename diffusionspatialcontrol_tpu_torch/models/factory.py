@@ -36,6 +36,20 @@ def init_pipeline_params(generator: Union[int, torch.Generator],
         }
 
 
+def with_text_bias(params, seed: int = 0):
+    """The random init with a random final LayerNorm bias in CLIP (0.5 a
+    standard normal, from a CPU generator of ``seed``), as trained weights
+    have one: the init's zero bias leaves every text embedding row with a
+    mean of 0 up to rounding, and the "a1111" and "long" prompt modes
+    divide by such means (their weighting restores the embedding's mean).
+    Changes ``params`` in place and returns it."""
+    norm = params["clip"]["final_layer_norm"]
+    g = torch.Generator().manual_seed(seed)
+    bias = 0.5 * torch.randn(norm["bias"].shape, generator=g)
+    norm["bias"] = bias.to(norm["bias"].dtype).to(norm["bias"].device)
+    return params
+
+
 def param_count(params) -> int:
     """Elements in a parameter tree (a ``None`` leaf counts none)."""
     if params is None:

@@ -58,6 +58,16 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def as_channels_last(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied into a tensor allocated ``channels_last``, the strides
+    ``convert/hf.py`` gives a converted conv kernel. A contiguous (O, I, 1,
+    1) kernel already counts as channels_last-contiguous, so
+    ``.contiguous(memory_format=torch.channels_last)`` would keep its
+    contiguous strides, and cuDNN would copy it at every call."""
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device,
+                       memory_format=torch.channels_last).copy_(t)
+
+
 def conv_init(generator: torch.Generator, in_channels: int,
               out_channels: int, kernel_size: int = 3,
               dtype=torch.bfloat16, device=None, zero: bool = False):
@@ -70,7 +80,7 @@ def conv_init(generator: torch.Generator, in_channels: int,
         fan_in = in_channels * kernel_size * kernel_size
         kernel = _uniform(generator, shape, 1.0 / math.sqrt(fan_in), dtype,
                           device)
-    return {"kernel": kernel.contiguous(memory_format=torch.channels_last),
+    return {"kernel": as_channels_last(kernel),
             "bias": torch.zeros(out_channels, dtype=dtype, device=device)}
 
 

@@ -63,8 +63,13 @@ def rasterize_region_biases(masks: torch.Tensor, weights: torch.Tensor,
     out = []
     for ratio in LEVEL_RATIOS:
         h_r, w_r = level_shape(height, width, ratio)
-        m = F.interpolate(masks[None], size=(h_r, w_r), mode="bicubic",
-                          align_corners=False, antialias=True)[0]
+        # in float64, then rounded to fp32: a pixel the filter centres on a
+        # mask's edge is 0.5 exactly and rounds (half to even) to 0, where
+        # an fp32 sum lands an ulp either side (JAX's fp32 resize does not
+        # sum in torch's order)
+        m = F.interpolate(masks[None].double(), size=(h_r, w_r),
+                          mode="bicubic", align_corners=False,
+                          antialias=True)[0].float()
         m = torch.round(torch.clamp(m, 0.0, 255.0))
         mx = m.amax(dim=(1, 2), keepdim=True)
         m = (m == mx).float()

@@ -32,9 +32,11 @@ Math parity notes (as in the JAX package):
 
 Randomness: each sample draws from its own CPU ``torch.Generator``
 (``samplers.brownian``), in a fixed order: txt2img its initial latents,
-img2img its noise, then the solver noise; ``encode_image`` its posterior
-draw; inpaint the posterior draw, the initial latents, the blend noise
-(4-channel UNets only), then the solver noise. The speed modes draw as
+img2img its noise, then the solver noise; inpaint the posterior draw, the
+initial latents, the blend noise (4-channel UNets only), then the solver
+noise. ``encode_image`` takes its posterior draw from another stream of
+the seed (``posterior_noise``), so img2img from its latents with the same
+seed does not add the same draw twice. The speed modes draw as
 txt2img does (cfg-tail, TGATE and DeepCache draw nothing else; TGATE and
 cfg-tail resume the same solver noise after their switch), and bottleneck
 sampling, whose solvers draw no noise, then draws its two boundary noises,
@@ -42,8 +44,8 @@ the low-resolution one first (``bottleneck_draws``). So a sample's result
 depends only on its seed, not on the batch it rides in, on the device or on
 whether latents were passed. The streams differ from JAX's threefry
 streams; tests pass ``latents=`` and patch ``initial_noise``,
-``seeded_normals``, ``bottleneck_draws`` and ``_solver_noise`` to compare the
-two packages.
+``seeded_normals``, ``posterior_noise``, ``bottleneck_draws`` and
+``_solver_noise`` to compare the two packages.
 """
 
 from __future__ import annotations
@@ -417,9 +419,8 @@ def seeded_normals(seeds: Sequence[int], shape: Tuple[int, ...], count: int,
                    device: torch.device) -> torch.Tensor:
     """The first ``count`` standard-normal draws of ``shape`` from each
     sample's generator, (count, len(seeds)) + shape: an inpaint request's
-    posterior draw, initial latents and blend noise, in that order, or
-    ``encode_image``'s posterior draw. Drawn on the CPU, so that a seed
-    gives the same noise on every device."""
+    posterior draw, initial latents and blend noise, in that order. Drawn
+    on the CPU, so that a seed gives the same noise on every device."""
     draws = []
     for s in seeds:
         g = torch.Generator().manual_seed(int(s))
@@ -434,6 +435,19 @@ def initial_noise(seeds: Sequence[int], shape: Tuple[int, ...],
     """Standard-normal latents (len(seeds),) + shape, the first draw of each
     sample's generator: txt2img's initial latents and img2img's noise."""
     return seeded_normals(seeds, shape, 1, device)[0]
+
+
+def posterior_noise(seeds: Sequence[int], shape: Tuple[int, ...],
+                    device: torch.device) -> torch.Tensor:
+    """``encode_image``'s posterior draws, (len(seeds),) + shape: for each
+    seed the first standard-normal draw of numpy's PCG64 generator of that
+    seed. txt2img, img2img and inpaint draw from the seed's torch generator
+    (an MT19937), so this stream is one they never use, as the JAX package
+    draws ``encode_image``'s posterior from ``PRNGKey(seed)`` and img2img's
+    noise from a split of it. Drawn on the CPU, as every draw."""
+    return torch.from_numpy(np.stack([
+        np.random.default_rng(int(s) % 2 ** 64).standard_normal(
+            shape, dtype=np.float32) for s in seeds])).to(device)
 
 
 def bottleneck_draws(seeds: Sequence[int], low_shape: Tuple[int, ...],
@@ -1055,15 +1069,14 @@ class StableDiffusionTorch:
     def encode_image(self, images: torch.Tensor, seed: SeedT = 0
                      ) -> torch.Tensor:
         """images (B, H, W, 3) in [-1, 1] -> scaled latents (B, H/8, W/8, 4),
-        one posterior draw a sample: the first draw of the generator of
-        seed, seed + 1, ... (or of each seed of a list). ``img2img`` with
-        the same seed takes its noise from that same first draw; the JAX
-        package draws the two from separate keys."""
+        one posterior draw a sample (``posterior_noise``) for seed, seed +
+        1, ... (or for each seed of a list): a stream that ``img2img`` and
+        ``txt2img`` of the same seed never draw from."""
         images = torch.as_tensor(images, dtype=torch.float32,
                                  device=self.device)
         b, h, w, _ = images.shape
         seeds = _batch_seeds(seed, b, "encode_image")
-        eps = seeded_normals(seeds, (h // 8, w // 8, 4), 1, self.device)[0]
+        eps = posterior_noise(seeds, (h // 8, w // 8, 4), self.device)
         return self._encode(images, eps)
 
     @torch.inference_mode()

@@ -24,7 +24,6 @@ from test_torch_inpaint import (
     PROMPT,
     _close,
     _gen,
-    _inject,
     _inputs,
     _run_both,
     _two_masks,
@@ -64,10 +63,11 @@ def test_encode_image_then_img2img_matches_jax(pipes, monkeypatch):
     the encoded and the final latents, and ``decode_latents``."""
     jpipe, tpipe = pipes["four"]
     img, _ = _inputs(1, seed=1)
-    eps = np.asarray(jax.random.normal(jax.random.PRNGKey(6), (1, 8, 8, 4)))
+    eps = np.array(jax.random.normal(jax.random.PRNGKey(6), (1, 8, 8, 4)))
     noise0 = np.array(jpipeline._keyed_normal(
         jpipeline._seed_fold_keys(6, 2)[0], (1, 8, 8, 4)))
-    _inject(monkeypatch, torch.from_numpy(eps[None].copy()))
+    monkeypatch.setattr(tpipeline, "posterior_noise",
+                        lambda seeds, shape, device: torch.from_numpy(eps))
     monkeypatch.setattr(tpipeline, "initial_noise",
                         lambda seeds, shape, device: torch.from_numpy(noise0))
     out = []
@@ -86,3 +86,41 @@ def test_encode_image_then_img2img_matches_jax(pipes, monkeypatch):
     _close(got, want)
     assert torch.equal(tpipe.decode_latents(got), tvae.vae_decode(
         tpipe.params["vae"], tcfg.tiny_config().vae, got))
+
+
+class _Stop(Exception):
+    pass
+
+
+def test_encode_image_and_img2img_of_one_seed_share_no_draw(pipes,
+                                                            monkeypatch):
+    """``encode_image`` draws its posterior from another stream of the seed
+    than the one ``img2img`` takes its initial noise from (the JAX package:
+    ``PRNGKey(seed)`` and the first of its split), so img2img from the
+    latents of one seed does not add the same draw twice: on a 512^2 image
+    (64x64x4 latents) the two draws of seeds 0 and 6 correlate by less than
+    0.05. ``encode_image`` stays deterministic per seed, and its draws
+    differ between seeds."""
+    _, tpipe = pipes["four"]
+    ctx, _ = tpipe.encode_prompt([PROMPT], [NEG])
+    img = torch.from_numpy(np.random.default_rng(2).uniform(
+        -1, 1, (1, 512, 512, 3)).astype(np.float32))
+    eps, noise = [], []
+    monkeypatch.setattr(tpipe, "_encode",
+                        lambda images, e: eps.append(e) or e)
+
+    def initial(seeds, shape, device):
+        noise.append(tpipeline.seeded_normals(seeds, shape, 1, device)[0])
+        raise _Stop
+
+    monkeypatch.setattr(tpipeline, "initial_noise", initial)
+    for seed in (0, 6, 6):
+        lat = tpipe.encode_image(img, seed=seed)
+        with pytest.raises(_Stop):
+            tpipe.img2img(ctx, lat, _gen(tcfg, torch.float32), seed=seed)
+    assert eps[0].shape == noise[0].shape == (1, 64, 64, 4)
+    for e, n in zip(eps, noise):
+        r = np.corrcoef(e.flatten().numpy(), n.flatten().numpy())[0, 1]
+        assert abs(r) < 0.05, r
+    assert torch.equal(eps[1], eps[2])
+    assert not torch.equal(eps[0], eps[1])

@@ -60,6 +60,9 @@ PREPROCESS = tuple(f"diffusionspatialcontrol_tpu_torch.{m}" for m in (
     "models.pidinet", "models.lineart", "models.lineart_anime",
     "models.mlsd", "models.dpt", "models.openpose", "models.upernet",
     "models.normalbae", "models.zoedepth", "app.gradio_ui"))
+# the two demos, run as modules
+EXAMPLES = tuple(f"diffusionspatialcontrol_tpu_torch.examples.{m}" for m in (
+    "spatial_control_demo", "controlnet_hires_demo"))
 # what the card's machine does not have: none of it at import time
 ABSENT_ON_THE_CARD = ("cv2", "PIL", "transformers", "gradio")
 
@@ -94,7 +97,7 @@ def test_importing_every_port_module_loads_no_jax(probe):
     result = probe
     assert len(result["modules"]) >= 20
     assert set(APP_LAYER + PARALLEL + UNITS + IP_ADAPTER + CONVERT
-               + INTROSPECT + PREPROCESS) <= set(result["modules"])
+               + INTROSPECT + PREPROCESS + EXAMPLES) <= set(result["modules"])
     assert result["loaded"] == []
 
 
