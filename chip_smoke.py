@@ -14,12 +14,15 @@ result line:
    of two to four prompt chunks (K1 at 154, 231 and 308, K2 at 154 and
    231) and the id counts of long-mode prompts of two and three chunks
    (152, 227);
-   K1 and K2 at SD2.1's 512^2 shapes (D = 64 with 5, 10 and 20 heads);
+   K1 and K2 at SD2.1's 512^2 shapes (D = 64 with 5, 10 and 20 heads)
+   and at sd21_config(True)'s 768^2 ones (level 0: L = 9216);
    K2 at the two shapes where the JAX package streams (K3: the level-0
    self-attention at 1024^2, L = 16384, and at 1920x1088, L = 32640); K4
    and K5 (the fused GroupNorm+SiLU+conv3x3) at every resnet-conv shape of
-   the UNet and the VAE decoder at 512^2 and 1024^2 and of the VAE encoder
-   at 512^2 (img2img and inpaint); K2 at IP-Adapter's shapes (the
+   the UNet and the VAE decoder at 512^2 and 1024^2, at 1088 x 1920 and at
+   512^2 and 768^2 with batch 4, and of the VAE encoder at 512^2 (img2img
+   and inpaint), each labelled with the JAX package's route there (K4a,
+   K4b, or unfused where it finds no tile); K2 at IP-Adapter's shapes (the
    decoupled cross-attention at S = 1, 4 and 16 image tokens at every
    level and at the hires pass's L = 16384, the ViT-H/14 tower's
    L = S = 257 at D = 80, the Resampler's L = 16, S = 273 at D = 64); K1
@@ -99,11 +102,18 @@ result line:
    reads: ``large_spatial`` (1088 x 1920 with a one-phrase map,
    benchmarks/bench_large.py; K3: K2's 125 launches at L = S = 32640),
    ``b4_vanilla`` and ``b4_768_vanilla`` (batch 4 at 512^2 and 768^2,
-   bench.py:157-179) and ``b4_spatial`` (512^2 batch 4 with main's map),
+   bench.py:157-179) and ``b4_spatial`` (512^2 batch 4 with main's map);
+   the same with the fused resnet convs: ``large_spatial_pallas`` (K4),
+   ``large_spatial_pallas2``, ``b4_spatial_pallas2`` and
+   ``b4_768_pallas2`` (K5), 1128 launches a request, their final latents
+   held to the plain-conv request's of the same seed within 4 times the
+   same comparison at 512^2; and ``sd21v_768_spatial``
+   (``sd21_config(True)``, v-prediction, at its 768^2 with main's map);
    with their p50s, the card's peak allocation and, first among the
    queued profiles, one profile each; ``large_spatial``'s region state on
-   the card equal to the CPU's, and ``large_spatial`` once through
-   ``inference()``, its image equal to ``txt2img``'s bit for bit;
+   the card equal to the CPU's, and ``large_spatial`` and
+   ``large_spatial_pallas2`` once each through ``inference()``, the image
+   equal to ``txt2img``'s bit for bit;
 6. modes: the opt-in speed modes and DAAM on SD1.5 at full width, main's
    spatial request otherwise: TGATE at gate 0.5 with and without the map,
    DeepCache at interval 3 with plain convs and with K5, bottleneck
@@ -186,6 +196,7 @@ whole run stays inside its 1200 s limit; the request types in
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import json
@@ -217,7 +228,9 @@ LEVELS_LOW = tuple((l // 4, d, n) for l, d, n in LEVELS)
 # level, all at D = 64 (channels / 64 heads), S = 77 on a 1024-wide context.
 LEVELS_SD21 = ((4096, 5, 5), (1024, 10, 5), (256, 20, 5), (64, 20, 1))
 D_SD21 = 64
-L_SD21_768 = 9216  # level 0 of sd21_config(True) at its 768^2 (checks only)
+# sd21_config(True) (v-prediction) at its 768^2: phase large's
+# ``sd21v_768_spatial``; (L, heads) at each level as above.
+LEVELS_SD21_768 = ((9216, 5, 5), (2304, 10, 5), (576, 20, 5), (144, 20, 1))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory and the rate of
 # the operand type (bf16 on the tensor cores, fp32 on the CUDA cores).
@@ -254,6 +267,12 @@ HIRES = 1024
 # 4 at 512^2 and 768^2; (H, W) and the batch.
 LARGE = (1088, 1920)
 B4 = 4
+# The sizes whose resnet convs phase kernels holds K4 and K5 to their plain
+# version at: (height, width, batch, with the VAE encoder's), the UNet on
+# the CFG pair (2 * batch).
+CONV_SIZES = ((512, 512, 1, True), (HIRES, HIRES, 1, False),
+              (*LARGE, 1, False), (512, 512, B4, False),
+              (768, 768, B4, False))
 # IP-Adapter's attentions on K2: the decoupled cross-attention at each
 # level (B = 2, the CFG pair; H = 8) with S = 1 (Face), 4 (base, Light,
 # FaceID) and 16 (Plus, Plus Face) image tokens, and at the hires pass's
@@ -407,16 +426,73 @@ def resnet_conv_shapes(cfg, height: int, width: int, batch: int = 1,
     return out
 
 
-def jax_sends_to_k4b(h: int, w: int) -> bool:
-    """Whether the JAX package's tile search leaves the whole-map K4a for
-    the row-tiled K4b at an H x W map: on this slice's shapes, exactly the
-    maps of 128 x 128 and more (tests/test_torch_conv_fused.py re-derives
-    it from the search itself)."""
-    return h * w >= 128 * 128
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def jax_conv_route(h: int, w: int, c_in: int, c_out: int, skip: bool,
+                   itemsize: int = 2):
+    """(K4's body, whether K5 fits) where the JAX package's wrappers send
+    one fused conv of an H x W map (ops/pallas/conv_fused.py:186-242 and
+    :554-602, restated): "K4a" where the whole padded map fits the 13 MiB
+    VMEM budget (``_pick_tiles``), else "K4b" where a row block with its
+    halo of two padded rows does (``_pick_row_tiles``), else None: no tile,
+    and the JAX resnet runs unfused convs (models/unet.py:303-334); K5 fits
+    where ``_pick_tiles_v2`` finds a block of rows within 12 MiB. Each
+    working set grows with every tile dimension, so a search finds a tile
+    exactly where its smallest candidate fits: 128 channels each way and
+    the fewest rows. tests/test_torch_large_fused.py holds this to the JAX
+    package's searches."""
+    budget = 13 * 2 ** 20
+    c = 128  # the smallest channel tiles; c_in and c_out pad to 128
+    sk = c * itemsize if skip else 0
+    m = _up((h + 2) * (w + 2), 8)
+    if m * (2 * c * itemsize + 4 * c + 8 * c + c * itemsize + sk) \
+            + 18 * c * c * itemsize <= budget:
+        k4 = "K4a"
+    else:
+        halo = _up(2 * (w + 2) + 2, 8)
+        m_t = min((t for t in (4096, 3072, 2048, 1536, 1024, 512)
+                   if t >= halo), default=None)
+        k4 = "K4b" if m_t is not None and (
+            4 * m_t * c * itemsize + (m_t + halo) * 8 * c
+            + m_t * (4 * c + c * itemsize + sk)
+            + 18 * c * c * itemsize <= budget) else None
+    wp2 = _up(w + 2, 8)
+    m, lo = (h + 2) * wp2, max(2 * wp2 + 2, 128)
+    m_t, n = None, 1
+    while _up(-(-m // n), 8) >= lo:  # the row blocks of n = 1, 2, ...
+        m_t, n = _up(-(-m // n), 8), n + 1
+    k5 = m_t is not None and (
+        4 * m_t * c * itemsize + (m_t + 2 * wp2 + 2) * 4 * c
+        + (m_t + 2 * wp2) * 3 * c * itemsize
+        + m_t * (8 * c + c * itemsize + sk)
+        + 18 * c * c * itemsize <= 12 * 2 ** 20)
+    return k4, k5
+
+
+def jax_route(h: int, w: int, c_in: int, c_out: int):
+    """``jax_conv_route`` of a launch as the kernels' wrappers tally it, by
+    (B, H, W, C_in, C_out) without the skip: the route with and without it,
+    which agree on every shape this script serves, where the JAX resnet's
+    fallback (both convs unfused when either has no tile) also agrees with
+    each conv's own route (tests/test_torch_large_fused.py). Raises where
+    the skip would decide."""
+    route = jax_conv_route(h, w, c_in, c_out, False)
+    if jax_conv_route(h, w, c_in, c_out, True) != route:
+        raise ValueError(f"the JAX route of {h}x{w} {c_in}->{c_out} depends "
+                         f"on the skip, which the launch tally does not keep")
+    return route
 
 
 def rms(t: torch.Tensor) -> float:
     return float(t.float().square().mean().sqrt())
+
+
+def rel_rms(got: torch.Tensor, want: torch.Tensor) -> float:
+    """||got - want|| / ||want|| in fp32."""
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
 
 
 def bound(b, h, l, s, d, dtype, bias: bool):
@@ -523,8 +599,10 @@ def phase_kernels(ctx):
     for l, d, n in LEVELS_LOW:  # bottleneck's middle phase, at 32^2 latents
         cases.append(("K2 bottleneck", l, l, d, n, HEADS, BATCH))
         cases.append(("K1 bottleneck", l, TEXT, d, n, HEADS, BATCH))
-    for l, heads, n in LEVELS_SD21 + ((L_SD21_768, 5, 0),):
-        # sd21_spatial: self and spatial cross; the v model's 768^2 level 0
+    for l, heads, n in LEVELS_SD21 + tuple(
+            (l, heads, 0) for l, heads, _ in LEVELS_SD21_768):
+        # sd21_spatial: self and spatial cross; then the v model's 768^2
+        # (sd21v_768_spatial), left out of the 512^2 UNet call's sums
         cases.append(("K2 sd21", l, l, D_SD21, n, heads, BATCH))
         cases.append(("K1 sd21", l, TEXT, D_SD21, n, heads, BATCH))
     # IP-Adapter: the decoupled attention (launches a UNet call a adapter),
@@ -845,9 +923,10 @@ def conv_bound(b, h, w, c_in, c_out, temb, skip):
 def conv_checks(dev, g, timer):
     """K4 and K5 through their wrappers against ``gn_silu_conv3x3_plain`` at
     every distinct resnet-conv shape of SD1.5's UNet (CFG pair) and VAE
-    decoder at 512^2 and 1024^2 and of its VAE encoder at 512^2 (img2img
-    and inpaint), with the GroupNorm folded from random statistics as the
-    resnets fold it.
+    decoder at each of ``CONV_SIZES`` (512^2 and 1024^2, the large
+    requests' 1088 x 1920 and 512^2 and 768^2 at batch 4) and of its VAE
+    encoder at 512^2 (img2img and inpaint), with the GroupNorm folded from
+    random statistics as the resnets fold it.
 
     Tolerances: fp32 5e-5 absolute (tests/test_conv_fused.py; sums of up to
     9 * 2560 terms in another order). bf16: rtol 1e-2 and atol 5% of the
@@ -863,7 +942,9 @@ def conv_checks(dev, g, timer):
     bias and skip; ``unfused_ms`` is the port's ``"xla"`` resnet conv
     (models/layers.py: fp32 GroupNorm, SiLU, cuDNN conv, the channel bias
     and the skip added in bf16), which computes the same conv with other
-    roundings."""
+    roundings. Each row names the route the JAX package takes there
+    (``jax_conv_route``: K4a, K4b or unfused; whether K5 fits) and the
+    sizes it occurs at."""
     import torch.nn.functional as F
 
     from diffusionspatialcontrol_tpu_torch.models import layers
@@ -872,14 +953,13 @@ def conv_checks(dev, g, timer):
     from diffusionspatialcontrol_tpu_torch import sd15_config
 
     cfg = sd15_config()
-    per_call = {}  # shape -> launches in one 512^2 UNet call / one decode
-    shapes = []  # / one encode
-    for size in (512, HIRES):
-        for sh in resnet_conv_shapes(cfg, size, size, encoder=size == 512):
-            if size == 512:
-                per_call[sh] = per_call.get(sh, 0) + 1
-            if sh not in shapes:
-                shapes.append(sh)
+    sizes = {}  # size -> the shapes of one UNet call and one decode (encode)
+    for height, width, batch, encoder in CONV_SIZES:
+        tag = f"{height}x{width}" + (f" b{batch}" if batch > 1 else "")
+        sizes[tag] = resnet_conv_shapes(cfg, height, width, batch=batch,
+                                        encoder=encoder)
+    shapes = list(dict.fromkeys(sh for v in sizes.values() for sh in v))
+    per_call = collections.Counter(sizes["512x512"])
     kernels = {"K4": kc.gn_silu_conv3x3, "K5": kc.gn_silu_conv3x3_v2}
     rows = {name: [] for name in kernels}
     errs = {name: [0.0, 0.0] for name in kernels}
@@ -924,6 +1004,7 @@ def conv_checks(dev, g, timer):
 
         unfused_ms = timer(unfused)
         b_ms, bytes_ms, ops_ms = conv_bound(b, h, w, c_in, c_out, temb, skip)
+        jax_k4, jax_k5 = jax_conv_route(h, w, c_in, c_out, skip)
         line = []
         for name, fn in kernels.items():
             e32 = check_close(f"{name} {tag} fp32",
@@ -934,8 +1015,7 @@ def conv_checks(dev, g, timer):
                 raise AssertionError(f"{name} {tag}: bf16 gave {out.dtype}")
             e16 = check_close(f"{name} {tag} bf16", out, want16, 1e-2,
                               0.05 * rms(want16))
-            rel = float((out.float() - want16.float()).norm()
-                        / want16.float().norm())
+            rel = rel_rms(out, want16)
             if not rel <= 4e-3:
                 raise AssertionError(f"{name} {tag} bf16: RMS-relative error "
                                      f"{rel:.3e} exceeds 4e-3")
@@ -951,45 +1031,66 @@ def conv_checks(dev, g, timer):
             rows[name].append({
                 "where": where, "B": b, "H": h, "W": w, "C_in": c_in,
                 "C_out": c_out, "temb": temb, "skip": skip,
-                "per_call_512": per_call.get(sh, 0),
-                "jax_body": "K4b" if jax_sends_to_k4b(h, w) else "K4a",
+                "per_call_512": per_call[sh],
+                "sizes": [k for k, v in sizes.items() if sh in v],
+                "jax_body": jax_k4 or "unfused", "jax_k5_fits": jax_k5,
+                "splits": plan.splits,
                 "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 "unfused_ms": unfused_ms, "bound_ms": b_ms,
                 "bytes_ms": bytes_ms,
                 "operations_ms": ops_ms,
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "max_abs_err_fp32": e32, "max_abs_err_bf16": e16})
+                "max_abs_err_fp32": e32, "max_abs_err_bf16": e16,
+                "rms_rel_err_bf16": rel})
             line.append(f"{name} {ms:.4f} ms (errs {e32:.1e}, {e16:.1e}, "
                         f"rms-rel {rel:.1e}, {plan.splits} splits)")
         torch.cuda.synchronize()
         log(f"kernels: conv {tag}: " + ", ".join(line) + f"; plain "
             f"{plain_ms:.4f} ms, cudnn {lib_ms:.4f} ms, unfused "
-            f"{unfused_ms:.4f} ms, bound {b_ms:.4f} ms")
+            f"{unfused_ms:.4f} ms, bound {b_ms:.4f} ms; JAX "
+            f"{jax_k4 or 'unfused'}, K5 {'fits' if jax_k5 else 'unfused'}")
         del x, kern, xb, sk, want32, want16, xb16, kb16, sk16, act16, xb_16
-    log(f"kernels: conv: {repeats} split-K launches repeated bitwise")
+    log(f"kernels: conv: {len(shapes)} shapes, {repeats} split-K launches "
+        f"repeated bitwise")
 
-    # Sums over the launches of one UNet call and one decode at each size,
-    # split by the Pallas body the JAX package would run there (K4a/K4b).
-    for size in (512, HIRES):
-        groups = {}
-        for sh in resnet_conv_shapes(cfg, size, size, encoder=size == 512):
-            key = (sh[0], "K4b" if jax_sends_to_k4b(sh[2], sh[3]) else "K4a")
-            groups.setdefault(key, []).append(shapes.index(sh))
-        for (where, body), idx in groups.items():
-            tot = {f: [sum(rows[n][i][f] for i in idx) for n in kernels]
-                   for f in ("ms", "plain_ms", "library_ms", "unfused_ms",
-                             "bound_ms")}
-            log(f"kernels: conv sums, {where} at {size}^2, {len(idx)} "
-                f"launches at {body} shapes: K4 {tot['ms'][0]:.4f} ms, K5 "
-                f"{tot['ms'][1]:.4f} ms, plain {tot['plain_ms'][0]:.4f} ms, "
-                f"cudnn {tot['library_ms'][0]:.4f} ms, unfused "
+    def sums(idx):
+        return {f: [sum(rows[n][i][f] * k for i, k in idx.items())
+                    for n in kernels]
+                for f in ("ms", "plain_ms", "library_ms", "unfused_ms",
+                          "bound_ms")}
+
+    def sum_line(tot):
+        return (f"K4 {tot['ms'][0]:.4f} ms, K5 {tot['ms'][1]:.4f} ms, plain "
+                f"{tot['plain_ms'][0]:.4f} ms, cudnn "
+                f"{tot['library_ms'][0]:.4f} ms, unfused "
                 f"{tot['unfused_ms'][0]:.4f} ms, bound "
                 f"{tot['bound_ms'][0]:.4f} ms")
+
+    # Sums over the launches of one UNet call and one decode at each size,
+    # split by the route the JAX package takes there (K4a, K4b, unfused);
+    # then over one request's: 25 UNet calls and one decode.
+    for size, size_shapes in sizes.items():
+        groups = {}
+        for sh in size_shapes:
+            key = (sh[0], jax_conv_route(*sh[2:6], sh[7])[0] or "unfused")
+            idx = groups.setdefault(key, collections.Counter())
+            idx[shapes.index(sh)] += 1
+        for (where, body), idx in groups.items():
+            log(f"kernels: conv sums, {where} at {size}, "
+                f"{sum(idx.values())} launches at JAX {body} shapes: "
+                + sum_line(sums(idx)))
+        idx = collections.Counter()
+        for sh in size_shapes:
+            idx[shapes.index(sh)] += (STEPS if sh[0] == "unet" else
+                                      1 if sh[0] == "vae" else 0)
+        log(f"kernels: conv sums, one {size} request ({STEPS} UNet calls, "
+            f"one decode), {sum(idx.values())} launches: "
+            + sum_line(sums(idx)))
 
     # Sums by map size over the launches of one 512^2 UNet call and one
     # 512^2 decode (PERF.md's per-map table).
     by_map = {}
-    for sh in resnet_conv_shapes(cfg, 512, 512, encoder=True):
+    for sh in sizes["512x512"]:
         by_map.setdefault((sh[0], sh[2], sh[3]), []).append(shapes.index(sh))
     for (where, h, w), idx in by_map.items():
         tot = {f: [sum(rows[n][i][f] for i in idx) for n in kernels]
@@ -1170,14 +1271,19 @@ def _counts():
     shapes where the JAX package streams (``jax_streams``: the level-0
     self-attentions at 1024^2, L = S = 16384, and at 1920x1088, L = S =
     32640); "K4b": K4's launches at the shapes the JAX package sends to its
-    row-tiled body; "K1 S=154" and "K2 S=154": launches on a context of two
-    prompt chunks."""
+    row-tiled body, and "K4 JAX-unfused" / "K5 JAX-unfused": K4's and K5's
+    launches where the JAX package finds no tile and runs unfused convs
+    (``jax_route``); "K1 S=154" and "K2 S=154": launches on a context of
+    two prompt chunks."""
     w = _wrappers()
     c = {name: fn.launches for name, fn in w.items()}
     c["K3"] = sum(n for (_, s, d), n in w["K2"].shapes.items()
                   if jax_streams(s, d))
-    c["K4b"] = sum(n for (_, h, ww, _, _), n in w["K4"].shapes.items()
-                   if jax_sends_to_k4b(h, ww))
+    k4 = [(jax_route(*key[1:])[0], n) for key, n in w["K4"].shapes.items()]
+    c["K4b"] = sum(n for body, n in k4 if body == "K4b")
+    c["K4 JAX-unfused"] = sum(n for body, n in k4 if body is None)
+    c["K5 JAX-unfused"] = sum(n for key, n in w["K5"].shapes.items()
+                              if not jax_route(*key[1:])[1])
     for name in ("K1", "K2"):
         c[f"{name} S={CHUNKED}"] = sum(
             n for (_, s, _), n in w[name].shapes.items() if s == CHUNKED)
@@ -1202,7 +1308,8 @@ def want_launches(cfg, size, calls, spatial, conv_impl, hires_calls=0,
     cross-attention for each of ``ip_adapters`` IP-Adapters; ``ip_once``:
     the K2 launches of the image tower and the Resampler, once a request
     (``ip_tower_launches``). K3 counts the self-attentions among K2's
-    launches where the JAX package streams (``jax_streams``)."""
+    launches where the JAX package streams (``jax_streams``); "K4b", "K4
+    JAX-unfused" and "K5 JAX-unfused" the fused convs by ``jax_route``."""
     h, w = (size, size) if isinstance(size, int) else size
     runs = [((h, w), calls)] + ([((2 * h, 2 * w), hires_calls)]
                                 if hires_calls else [])
@@ -1216,7 +1323,8 @@ def want_launches(cfg, size, calls, spatial, conv_impl, hires_calls=0,
                       for hw, k in runs
                       for l, d, n_unet, n_cn in attention_levels(cfg, *hw)
                       if jax_streams(l, d)),
-            "K4": 0, "K5": 0, "K4b": 0,
+            "K4": 0, "K5": 0, "K4b": 0, "K4 JAX-unfused": 0,
+            "K5 JAX-unfused": 0,
             f"K1 S={CHUNKED}": 0, f"K2 S={CHUNKED}": 0}
     if text_s == CHUNKED:
         want[f"K{1 if spatial else 2} S={CHUNKED}"] = PER_UNET * n
@@ -1229,9 +1337,14 @@ def want_launches(cfg, size, calls, spatial, conv_impl, hires_calls=0,
                   if sh[0] == "vae"]
         fused += [sh for sh in resnet_conv_shapes(cfg, h, w, encoder=True)
                   * encodes if sh[0] == "vae_enc"]
-        want["K4" if conv_impl == "pallas" else "K5"] = len(fused)
+        routes = [jax_route(*sh[2:6]) for sh in fused]
         if conv_impl == "pallas":
-            want["K4b"] = sum(jax_sends_to_k4b(sh[2], sh[3]) for sh in fused)
+            want["K4"] = len(fused)
+            want["K4b"] = sum(k4 == "K4b" for k4, _ in routes)
+            want["K4 JAX-unfused"] = sum(k4 is None for k4, _ in routes)
+        else:
+            want["K5"] = len(fused)
+            want["K5 JAX-unfused"] = sum(not k5 for _, k5 in routes)
     return want
 
 
@@ -2120,29 +2233,43 @@ def phase_main(ctx):
         + f"; launches {ctx['launches']} (card: {card_line()})")
     log("main: seconds by request type: " + ", ".join(
         f"{k} {v:.1f}" for k, v in ctx["seconds"].items()))
-    if min(ctx["launches"].values()) == 0:
+    # the JAX-unfused labels count only at 1088 x 1920 (phase large)
+    if min(v for k, v in ctx["launches"].items()
+           if not k.endswith("JAX-unfused")) == 0:
         raise AssertionError("main: a kernel of the path never launched")
 
 
 def phase_large(ctx):
     """The JAX package's large requests on SD1.5 at full width (main's
     random bf16 weights from seed 0), 25 DPM++ 2M Karras steps, CFG 7.5,
-    decoded to uint8, each through ``StableDiffusionTorch.txt2img``:
-    ``large_spatial`` (1088 x 1920, ``large_state``'s one-phrase map:
-    benchmarks/bench_large.py), ``b4_vanilla`` (512^2, seeds s..s+3, no map:
-    bench.py:157-166), ``b4_spatial`` (the same with main's two-phrase map
-    for each sample) and ``b4_768_vanilla`` (768^2, bench.py:169-179). Each
+    decoded to uint8, each through ``StableDiffusionTorch.txt2img``
+    (``decode=False``, then ``decode_latents``, which is ``txt2img``'s
+    decode): ``large_spatial`` (1088 x 1920, ``large_state``'s one-phrase
+    map: benchmarks/bench_large.py), ``b4_vanilla`` (512^2, seeds s..s+3, no
+    map: bench.py:157-166), ``b4_spatial`` (the same with main's two-phrase
+    map for each sample) and ``b4_768_vanilla`` (768^2, bench.py:169-179);
+    then with the fused resnet convs, ``large_spatial_pallas`` (K4) and
+    ``large_spatial_pallas2`` (K5), ``b4_spatial_pallas2`` and
+    ``b4_768_pallas2``, whose final latents of the first seed must lie
+    within ``LATENT_FACTOR`` times the same comparison at 512^2 (spatial,
+    seed 0, in this run) of the ``"xla"`` request of that seed; and
+    ``sd21v_768_spatial``: ``sd21_config(True)`` (v-prediction) at its
+    768^2 with main's map (K1 at L = 9216, D = 64 on level 0). Each
     request's images are finite, its denoiser calls free of host reads and
-    its launches exact (K3: K2's 125 level-0 self-attentions of
-    ``large_spatial`` at L = S = 32640); the p50 s/image after one warm-up
-    and the card's peak allocation by type; ``large_spatial``'s region
-    state on the card equal to the CPU's; then ``large_spatial`` once
-    through ``app.api.inference()`` (a ``ModelManager`` with the same random
-    weights), whose uint8 image must have its shape, vary, and equal the
-    pipeline's for that seed bit for bit. Each type is profiled by its
-    kernels at the start of the queued profiles."""
-    from diffusionspatialcontrol_tpu_torch import GenerationConfig, sd15_config
-    from diffusionspatialcontrol_tpu_torch.app import api
+    its launches exact (K3: K2's 125 level-0 self-attentions of the
+    1088 x 1920 requests at L = S = 32640; K4b and the JAX-unfused convs by
+    ``jax_route``); the p50 s/image after one warm-up and the card's peak
+    allocation by type; ``large_spatial``'s region state on the card equal
+    to the CPU's; then ``large_spatial`` and ``large_spatial_pallas2`` once
+    each through ``app.api.inference()`` (a ``ModelManager`` with the same
+    random weights, and ``conv_impl``), whose uint8 image must have its
+    shape, vary, and equal the pipeline's for that seed bit for bit. Each
+    type is profiled by its kernels at the start of the queued profiles."""
+    from diffusionspatialcontrol_tpu_torch import (
+        GenerationConfig,
+        sd15_config,
+        sd21_config,
+    )
     from diffusionspatialcontrol_tpu_torch.models.factory import (
         init_pipeline_params,
     )
@@ -2164,7 +2291,10 @@ def phase_large(ctx):
     ctx.setdefault("launches", {})
     ctx.setdefault("p50", {})
     ctx.setdefault("seconds", {})
-    pipe = StableDiffusionTorch(cfg, params, tokenizer=load_tokenizer())
+    pipes = {ci: StableDiffusionTorch(cfg, params, tokenizer=load_tokenizer(),
+                                      conv_impl=ci)
+             for ci in ("xla", "pallas", "pallas2")}
+    pipe = pipes["xla"]
     h, w = LARGE
     c1, ids1 = pipe.encode_prompt([PROMPT], [NEG], clip_skip=2)
     c4, ids4 = pipe.encode_prompt([PROMPT] * B4, [NEG] * B4, clip_skip=2)
@@ -2181,36 +2311,151 @@ def phase_large(ctx):
         f"at every level: {[tuple(t.shape) for t in rb_large]}")
     rb4 = pipe.encode_region([_masks(512, 512)] * B4, ids4, height=512,
                              width=512)
+    bounds = fused_latent_bounds(
+        pipes, c1, pipe.encode_region([_masks(512, 512)], ids1, height=512,
+                                      width=512))
     batches = [list(range(i, i + B4)) for i in range(0, 4 * B4, B4)]
-    requests = (  # (type, (H, W), context, biases, seeds: a warm-up first)
-        ("large_spatial", LARGE, c1, rb_large, [0, 1, 2, 3]),
-        ("b4_vanilla", (512, 512), c4, None, batches),
-        ("b4_spatial", (512, 512), c4, rb4, batches),
-        ("b4_768_vanilla", (768, 768), c4, None, batches[:3]),
+    requests = (  # (type, conv_impl, (H, W), context, biases, seeds: a
+        #           warm-up first)
+        ("large_spatial", "xla", LARGE, c1, rb_large, [0, 1, 2, 3]),
+        ("b4_vanilla", "xla", (512, 512), c4, None, batches),
+        ("b4_spatial", "xla", (512, 512), c4, rb4, batches),
+        ("b4_768_vanilla", "xla", (768, 768), c4, None, batches[:3]),
+        ("large_spatial_pallas", "pallas", LARGE, c1, rb_large, [0, 1, 2]),
+        ("large_spatial_pallas2", "pallas2", LARGE, c1, rb_large,
+         [0, 1, 2]),
+        ("b4_spatial_pallas2", "pallas2", (512, 512), c4, rb4, batches[:3]),
+        ("b4_768_pallas2", "pallas2", (768, 768), c4, None, batches[:3]),
     )
-    first = {}
-    for kind, (hh, ww), ctx_, rb, seeds in requests:
+    held_to = {"large_spatial_pallas": "large_spatial",
+               "large_spatial_pallas2": "large_spatial",
+               "b4_spatial_pallas2": "b4_spatial",
+               "b4_768_pallas2": "b4_768_vanilla"}
+    first, latents = {}, {}
+    for kind, conv_impl, (hh, ww), ctx_, rb, seeds in requests:
         gen = GenerationConfig(height=hh, width=ww,
                                num_inference_steps=STEPS, guidance_scale=7.5,
                                sampler="dpmpp_2m", schedule="karras")
 
-        def run(seed, gen=gen, ctx_=ctx_, rb=rb):
-            return pipe.txt2img(ctx_, gen, seed=seed, region_biases=rb)
+        def run(seed, p=pipes[conv_impl], gen=gen, ctx_=ctx_, rb=rb,
+                kind=kind, seed0=seeds[0]):
+            lat = p.txt2img(ctx_, gen, seed=seed, region_biases=rb,
+                            decode=False)
+            if seed == seed0:
+                latents[kind] = lat
+            return p.decode_latents(lat)
 
         alloc0 = torch.cuda.memory_allocated() / 1e9
         first[kind] = serve(ctx, kind, run, seeds, STEPS,
                             want_launches(cfg, (hh, ww), STEPS,
-                                          rb is not None, "xla"),
+                                          rb is not None, conv_impl),
                             (hh, ww), strict=True, phase="large")
         log(f"large: {kind}: p50 {ctx['p50'][kind]:.4f} s/image, the "
             f"card's peak allocation {ctx['peak_gb'][kind]:.2f} GB "
             f"({alloc0:.2f} GB allocated before), "
             f"{ctx['seconds'][kind]:.1f} s for {len(seeds)} requests")
+        if kind in held_to:
+            rel = rel_rms(latents[kind], latents[held_to[kind]])
+            if not rel <= bounds[conv_impl]:
+                raise AssertionError(
+                    f"large: {kind}: final latents of seed {seeds[0]} "
+                    f"{rel:.3e} RMS-relative from {held_to[kind]}'s, over "
+                    f"the bound {bounds[conv_impl]:.3e}")
+            log(f"large: {kind}: final latents of seed {seeds[0]} "
+                f"{rel:.4e} RMS-relative from {held_to[kind]}'s (bound "
+                f"{bounds[conv_impl]:.4e})")
         defer_profile(ctx, lambda run=run, seed=seeds[0]: run(seed), kind,
                       early=True, batch=len(seeds[0])
                       if isinstance(seeds[0], list) else 1)
-    # large_spatial as a user of the app sends it
-    manager = api.ModelManager()
+    # large_spatial as a user of the app sends it, with each conv path
+    for kind, conv_impl in (("large_spatial", None),
+                            ("large_spatial_pallas2", "pallas2")):
+        app_request(ctx, cfg, kind, conv_impl, state, first[kind])
+    log("large: p50 s/image after one warm-up: " + ", ".join(
+        f"{k} {ctx['p50'][k]:.4f}" for k, *_ in requests)
+        + "; peak allocation (GB): " + ", ".join(
+            f"{k} {ctx['peak_gb'][k]:.2f}" for k, *_ in requests)
+        + f" (card: {card_line()})")
+
+    # SD2.1-v at its 768^2, main's two-phrase map, plain convs
+    cfg21 = sd21_config(True)
+    t0 = time.perf_counter()
+    pipe21 = StableDiffusionTorch(
+        cfg21, init_pipeline_params(0, cfg21, torch.bfloat16),
+        tokenizer=load_tokenizer())
+    c21, ids21 = pipe21.encode_prompt([PROMPT], [NEG], clip_skip=2)
+    rb21 = pipe21.encode_region([_masks(768, 768)], ids21, height=768,
+                                width=768)
+    torch.cuda.synchronize()
+    log(f"large: sd21_config(True) (v-prediction), random bf16 weights from "
+        f"seed 0, in {time.perf_counter() - t0:.1f} s")
+    gen21 = GenerationConfig(height=768, width=768,
+                             num_inference_steps=STEPS, guidance_scale=7.5,
+                             sampler="dpmpp_2m", schedule="karras")
+    seeds = [0, 1, 2]
+
+    def run21(seed):
+        return pipe21.txt2img(c21, gen21, seed=seed, region_biases=rb21)
+
+    serve(ctx, "sd21v_768_spatial", run21, seeds, STEPS,
+          want_launches(cfg21, (768, 768), STEPS, True, "xla"), (768, 768),
+          strict=True, phase="large")
+    l0, d0, n0, _ = attention_levels(cfg21, 768, 768)[0]
+    w = _wrappers()
+    at_l0 = (w["K1"].shapes[(l0, TEXT, d0)], w["K2"].shapes[(l0, l0, d0)])
+    if (l0, d0) != (9216, D_SD21) or \
+            at_l0 != (len(seeds) * n0 * STEPS,) * 2:
+        raise AssertionError(f"large: sd21v_768_spatial: K1 and K2 at level "
+                             f"0 (L = {l0}, D = {d0}): {at_l0} launches")
+    log(f"large: sd21v_768_spatial: p50 {ctx['p50']['sd21v_768_spatial']:.4f}"
+        f" s/image, K1 and K2 {n0 * STEPS} launches a request each at "
+        f"L = {l0}, D = {d0}, the card's peak allocation "
+        f"{ctx['peak_gb']['sd21v_768_spatial']:.2f} GB (card: {card_line()})")
+    defer_profile(ctx, lambda: run21(99), "sd21v_768_spatial", early=True)
+
+
+LATENT_FACTOR = 4.0  # phase large: fused against "xla" latents, x the 512^2
+
+
+def fused_latent_bounds(pipes, context, biases):
+    """The bound of phase large's fused requests' final latents against the
+    ``"xla"`` request of the same seed, by conv path: ``LATENT_FACTOR``
+    times the RMS-relative distance of the same comparison on the spatial
+    request at 512^2 (batch 1, seed 0), taken here. Both paths round the
+    same convs differently (one rounding of the fused sum against the
+    GroupNorm's, the SiLU's and the conv's), and 25 steps carry those
+    differences to the final latents; a fault in a kernel (a dropped tap
+    or chunk) moves them by tens of percent."""
+    from diffusionspatialcontrol_tpu_torch import GenerationConfig
+
+    gen = GenerationConfig(height=512, width=512, num_inference_steps=STEPS,
+                           guidance_scale=7.5, sampler="dpmpp_2m",
+                           schedule="karras")
+    lat = {ci: p.txt2img(context, gen, seed=0, region_biases=biases,
+                         decode=False) for ci, p in pipes.items()}
+    bounds = {}
+    for ci in ("pallas", "pallas2"):
+        rel = rel_rms(lat[ci], lat["xla"])
+        if not 0.0 < rel < 1.0:
+            raise AssertionError(f"large: spatial 512^2 with {ci!r}: final "
+                                 f"latents {rel:.3e} RMS-relative from "
+                                 f"\"xla\"'s")
+        bounds[ci] = LATENT_FACTOR * rel
+        log(f"large: spatial 512^2, seed 0: {ci!r} final latents {rel:.4e} "
+            f"RMS-relative from \"xla\"'s; the bound of the large {ci!r} "
+            f"requests {bounds[ci]:.4e}")
+    return bounds
+
+
+def app_request(ctx, cfg, kind, conv_impl, state, image):
+    """``kind`` (1088 x 1920, ``state``'s map) once through
+    ``app.api.inference()`` on a ``ModelManager(conv_impl=conv_impl)`` with
+    phase large's random weights: its UNet calls and launches exact, and its
+    uint8 image ``image`` (``txt2img``'s of seed 0) bit for bit."""
+    from diffusionspatialcontrol_tpu_torch.app import api
+
+    h, w = LARGE
+    manager = api.ModelManager(conv_impl=conv_impl)
     manager.register_random("sd15", cfg, seed=0)
     _with_text_bias(manager._cache["sd15"], 0)
     before = _counts()
@@ -2223,30 +2468,26 @@ def phase_large(ctx):
             height=h, seed=0, encoding_mode="short", region_state=state)
     dt = time.perf_counter() - t0
     launches = _delta(_counts(), before)
-    want = want_launches(cfg, LARGE, STEPS, True, "xla")
+    want = want_launches(cfg, LARGE, STEPS, True, conv_impl or "xla")
     img = np.asarray(out["images"])
     if n.n != STEPS or launches != want:
-        raise AssertionError(f"large: inference(): {n.n} UNet calls, "
-                             f"launches {launches}; expected {STEPS}, {want}")
+        raise AssertionError(f"large: {kind} by inference(): {n.n} UNet "
+                             f"calls, launches {launches}; expected {STEPS}, "
+                             f"{want}")
     if img.shape != (1, h, w, 3) or img.dtype != np.uint8 or \
             int(img.max()) == int(img.min()):
-        raise AssertionError(f"large: inference() image {img.shape} "
-                             f"{img.dtype}, values {img.min()}..{img.max()}")
-    if not np.array_equal(img, first["large_spatial"].numpy()):
+        raise AssertionError(f"large: {kind} by inference(): image "
+                             f"{img.shape} {img.dtype}, values "
+                             f"{img.min()}..{img.max()}")
+    if not np.array_equal(img, image.numpy()):
         raise AssertionError(
-            f"large: inference()'s image differs from txt2img's by up to "
-            f"{np.abs(img.astype(int) - first['large_spatial'].numpy()).max()}"
-            f" uint8 steps")
-    log(f"large: large_spatial by inference(): {dt:.3f} s, {n.n} UNet "
-        f"calls, launches { {k: v for k, v in launches.items() if v} }, "
-        f"image {img.shape} mean {img.mean():.2f} std {img.std():.2f}, "
-        f"equal to txt2img's bit for bit; timings {out['timings']}")
-    del manager, out
-    log("large: p50 s/image after one warm-up: " + ", ".join(
-        f"{k} {ctx['p50'][k]:.4f}" for k, *_ in requests)
-        + "; peak allocation (GB): " + ", ".join(
-            f"{k} {ctx['peak_gb'][k]:.2f}" for k, *_ in requests)
-        + f" (card: {card_line()})")
+            f"large: {kind}: inference()'s image differs from txt2img's by "
+            f"up to {np.abs(img.astype(int) - image.numpy()).max()} uint8 "
+            f"steps")
+    log(f"large: {kind} by inference(): {dt:.3f} s, {n.n} UNet calls, "
+        f"launches { {k: v for k, v in launches.items() if v} }, image "
+        f"{img.shape} mean {img.mean():.2f} std {img.std():.2f}, equal to "
+        f"txt2img's bit for bit; timings {out['timings']}")
 
 
 MODE_SEEDS = [0, 1, 2, 3, 4, 5]  # phase modes: a warm-up, then 5 timed
@@ -4738,6 +4979,9 @@ def kernels_line(ctx):
             "library_ms": r["library_ms"], "per": per, "shapes": r["shapes"]})
         if key == "K4":
             out[-1]["launches_at_k4b_shapes"] = ctx["launches"]["K4b"]
+        if key in ("K4", "K5"):
+            out[-1]["launches_where_jax_runs_unfused"] = ctx["launches"][
+                f"{key} JAX-unfused"]
         if key in ("K1", "K2"):
             out[-1][f"launches_at_s{CHUNKED}"] = ctx["launches"][
                 f"{key} S={CHUNKED}"]

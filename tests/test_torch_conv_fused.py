@@ -107,10 +107,10 @@ def test_plain_matches_jax_fused_kernels(case, dtype):
             assert np.max(np.abs(g - want)) / np.max(np.abs(want)) < 2e-2
 
 
-def _resnet_case(where, conv_impl):
+def _resnet_case(where, conv_impl, hw=(8, 8)):
     key = jax.random.PRNGKey(0)
     rng = np.random.default_rng(1)
-    x = rng.standard_normal((2, 8, 8, 32)).astype(np.float32)
+    x = rng.standard_normal((2, *hw, 32)).astype(np.float32)
     if where == "unet":
         jp = junet._resnet_init(key, 32, 48, 64, jnp.float32)
         temb = rng.standard_normal((2, 64)).astype(np.float32)
@@ -218,13 +218,14 @@ def _jax_routes(h, w, c_in, c_out, has_skip, itemsize=2):
 def test_no_sd15_resnet_conv_takes_the_jax_vmem_fallback(size):
     """On every resnet conv of SD1.5 at 512^2 and 1024^2 (bf16), the JAX
     tile searches succeed, so both packages run a fused kernel there; and
-    K4b is taken exactly where chip_smoke.jax_sends_to_k4b says."""
+    K4b is taken exactly where chip_smoke.jax_route says."""
     shapes = chip_smoke.resnet_conv_shapes(tcfg.sd15_config(), size, size)
     routes = collections.Counter()
     for where, _, h, w, c_in, c_out, _, skip in shapes:
         v1, v2 = _jax_routes(h, w, c_in, c_out, skip)
         assert v1 is not None and v2, (where, h, w, c_in, c_out)
-        assert (v1 == "K4b") == chip_smoke.jax_sends_to_k4b(h, w)
+        assert (v1 == "K4b") == (
+            chip_smoke.jax_route(h, w, c_in, c_out)[0] == "K4b")
         routes[where, v1] += 1
     want = {512: {("unet", "K4a"): 44, ("vae", "K4a"): 10,
                   ("vae", "K4b"): 18},
@@ -236,15 +237,16 @@ def test_no_sd15_resnet_conv_takes_the_jax_vmem_fallback(size):
 def test_no_sd15_encoder_conv_takes_the_jax_vmem_fallback():
     """The VAE encoder's resnet convs of a 512^2 image (img2img and
     inpaint) in bf16: the JAX tile searches succeed on every one, and K4b
-    is taken exactly where chip_smoke.jax_sends_to_k4b says, at 512^2,
-    256^2 and 128^2."""
+    is taken exactly where chip_smoke.jax_route says, at 512^2, 256^2 and
+    128^2."""
     shapes = [sh for sh in chip_smoke.resnet_conv_shapes(
         tcfg.sd15_config(), 512, 512, encoder=True) if sh[0] == "vae_enc"]
     routes = collections.Counter()
     for _, _, h, w, c_in, c_out, _, skip in shapes:
         v1, v2 = _jax_routes(h, w, c_in, c_out, skip)
         assert v1 is not None and v2, (h, w, c_in, c_out)
-        assert (v1 == "K4b") == chip_smoke.jax_sends_to_k4b(h, w)
+        assert (v1 == "K4b") == (
+            chip_smoke.jax_route(h, w, c_in, c_out)[0] == "K4b")
         routes[v1, h] += 1
     assert routes == {("K4b", 512): 4, ("K4b", 256): 4, ("K4b", 128): 4,
                       ("K4a", 64): 8}

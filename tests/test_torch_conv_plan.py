@@ -89,3 +89,35 @@ def test_split_shapes_of_the_card_tests():
     assert kc.conv_plan("K5", 1, 1024, 1024, 128, 128).splits == 1
     with pytest.raises(ValueError):
         kc.conv_plan("K6", 1, 8, 8, 8, 8)
+
+
+def _large_shapes():
+    """The distinct resnet convs of SD1.5 at the large requests' sizes,
+    1088 x 1920 and 512^2 and 768^2 at batch 4, not at 512^2 or 1024^2."""
+    old = set(_sd15_shapes())
+    shapes = []
+    for height, width, batch in ((1088, 1920, 1), (512, 512, 4),
+                                 (768, 768, 4)):
+        for sh in chip_smoke.resnet_conv_shapes(sd15_config(), height, width,
+                                                batch=batch):
+            if sh[1:6] not in old and sh[1:6] not in shapes:
+                shapes.append(sh[1:6])
+    return shapes
+
+
+@pytest.mark.parametrize("version", ["K4", "K5"])
+def test_plans_at_the_large_request_shapes(version):
+    """Every C_in chunk taken once and the workspace under its bound at
+    each new shape; the grid fills the card; only the UNet's deepest
+    level splits, in two: 17 x 30 at 1088 x 1920 and 8 x 8 at 512^2 x 4
+    (2560 and 1280 -> 1280 on 120 and 80 tiles)."""
+    shapes = _large_shapes()
+    assert len(shapes) == 60  # 20 at each size
+    split = {}
+    for shape in shapes:
+        plan = _check_plan(version, *shape)
+        assert plan.blocks >= kc.SMS, (shape, plan)
+        if plan.splits > 1:
+            split[shape] = plan.splits
+    assert split == {(2, 17, 30, 2560, 1280): 2, (2, 17, 30, 1280, 1280): 2,
+                     (8, 8, 8, 2560, 1280): 2, (8, 8, 8, 1280, 1280): 2}

@@ -516,6 +516,39 @@ def test_conv_kernels_at_the_encoder_channel_pairs(dev, version, shape):
                             kc.gn_silu_conv3x3_plain(*ops).float())
 
 
+# The large requests' extremes: the UNet's 17 x 30 level at 1088 x 1920
+# (2560 -> 1280 with the skip: the C_in chunks split in two) and the
+# decoder's largest operand there, conv1 of the 1920-wide level's first
+# resnet (1088 x 1920 x 256 -> 128: 5.3e8 bf16 elements in).
+LARGE_SHAPES = [(2, 17, 30, 2560, 1280, False, True),
+                (1, 1088, 1920, 256, 128, False, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", ["K4", "K5"])
+@pytest.mark.parametrize("shape", LARGE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s[:5])))
+def test_conv_kernels_at_the_large_request_shapes(dev, version, shape):
+    """fp32 and bf16 against the plain version, tolerances as above; where
+    the plan splits, two launches give the same bits."""
+    from diffusionspatialcontrol_tpu_torch.ops.kernels import conv_fused as kc
+
+    launch = _conv_launcher(version)
+    b, h, w, c_in, c_out, temb, skip = shape
+    ops = _conv_operands(dev, b, h, w, c_in, c_out, torch.float32, temb, skip,
+                         seed=7)
+    torch.testing.assert_close(launch(*ops), kc.gn_silu_conv3x3_plain(*ops),
+                               rtol=0, atol=5e-5)
+    ops = _conv_operands(dev, b, h, w, c_in, c_out, torch.bfloat16, temb,
+                         skip, seed=8)
+    got = launch(*ops)
+    _assert_conv_bf16_close(got, kc.gn_silu_conv3x3_plain(*ops).float())
+    splits = kc.conv_plan(version, b, h, w, c_in, c_out).splits
+    assert splits == (2 if h == 17 else 1)
+    if splits > 1:
+        assert torch.equal(launch(*ops), got)
+
+
 # SD2.1 at 512^2: (L, heads) of each UNet level, D = 64, S = 77 text tokens.
 SD21_LEVELS = [(4096, 5), (1024, 10), (256, 20), (64, 20)]
 
