@@ -83,9 +83,11 @@ from ..ops.resize import resize_latents
 from ..parallel.mesh import RankError
 from ..pipeline.pipeline import DenoiseExtras, StableDiffusionTorch, on_device
 from ..text.tokenizer import load_tokenizer
-from ..utils.profiling import PhaseTimer, Watchdog
+from ..utils.profiling import PhaseTimer, Span, Watchdog
 
 _log = logging.getLogger(__name__)
+
+_PREPROCESS = Span("preprocess")
 
 
 @dataclasses.dataclass
@@ -445,7 +447,9 @@ class ModelManager:
         ``ops.preprocess.NATIVE_PREPROCESSORS``; a model-based name builds
         its network at first use (the registered weights, or random
         published-layout weights), runs it in fp32 without TF32 on
-        deterministic algorithms, and is cached by name."""
+        deterministic algorithms, and is cached by name. Each call is a
+        span ``preprocess`` (a request's root, unless a unit of
+        ``inference()`` calls it)."""
         from ..models import (dpt, hed, lineart, lineart_anime, mlsd,
                               normalbae, openpose, pidinet, upernet,
                               zoedepth)
@@ -552,7 +556,7 @@ class ModelManager:
             raise KeyError(f"unknown preprocessor {name!r}; available: "
                            f"{names}")
         if name != "Instruct Pix2Pix":
-            fn = in_fp32(fn)
+            fn = _PREPROCESS(in_fp32(fn))
         self._adapters[key] = fn
         return fn
 
@@ -593,6 +597,7 @@ def _to_host_u8(images) -> np.ndarray:
     return StableDiffusionTorch.to_uint8(images).cpu().numpy()
 
 
+@Span("inference")  # the root span of a request's ``timings`` phases
 def inference(
     manager: ModelManager,
     prompt: str,

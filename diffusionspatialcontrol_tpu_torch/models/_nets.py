@@ -1,6 +1,7 @@
 """What the detector networks share: their weights as a flat dict of fp32
 tensors on one device, NCHW convolutions on NHWC activations, and drawing
-random state dicts in the published layouts.
+random state dicts in the published layouts, and the copy of a result to
+the host.
 
 The detectors keep the published checkpoints' names and torch layouts (a
 conv weight is OIHW, a linear weight (out, in)), so a converter moves the
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..utils.profiling import Span
 
 
 @contextlib.contextmanager
@@ -112,6 +114,16 @@ def host_image(img, device) -> torch.Tensor:
     ``device``."""
     return torch.from_numpy(np.ascontiguousarray(img, np.float32))[None] \
         .to(device)
+
+
+_TO_HOST = Span("to_host")
+
+
+def to_host(x: torch.Tensor) -> np.ndarray:
+    """``x`` as a numpy array on the host: the host waits for the device's
+    work queued before the copy, then copies (span ``to_host``)."""
+    with _TO_HOST:
+        return x.cpu().numpy()
 
 
 class Draw:

@@ -19,11 +19,15 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.resize import resize
+from ..utils.profiling import Span
 from . import _nets as N
 from .pidinet import _nms_thin
 
 # convs per block; blocks 2..5 are preceded by a 2x2 max pool
 _CONVS = (2, 2, 3, 3, 3)
+
+_PREPARE, _NET, _FUSE = (Span("hed.prepare"), Span("hed.net"),
+                         Span("hed.fuse"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,19 +79,23 @@ def detect_edges(params, image: np.ndarray, scribble: bool = False
                  ) -> np.ndarray:
     """RGB image -> (H, W, 3) soft-edge map in [0, 1]; ``scribble``
     thins and binarizes it into the Scribble ControlNet's sketch."""
-    img = np.asarray(image)
-    if img.dtype != np.uint8 and img.max() <= 1.0:
-        img = (img * 255.0).astype(np.float32)
-    img = img.astype(np.float32)
-    h, w = img.shape[:2]
-    padded = np.pad(img, ((0, (-h) % 16), (0, (-w) % 16), (0, 0)),
-                    mode="edge")
-    th, tw = padded.shape[:2]
-    outs = hed_apply(params, N.host_image(padded, N.param_device(params)))
-    edges = [resize(o[0, :, :, 0], (th, tw), "linear").cpu().numpy()
+    with _PREPARE:
+        img = np.asarray(image)
+        if img.dtype != np.uint8 and img.max() <= 1.0:
+            img = (img * 255.0).astype(np.float32)
+        img = img.astype(np.float32)
+        h, w = img.shape[:2]
+        padded = np.pad(img, ((0, (-h) % 16), (0, (-w) % 16), (0, 0)),
+                        mode="edge")
+        th, tw = padded.shape[:2]
+        pixels = N.host_image(padded, N.param_device(params))
+    with _NET:
+        outs = hed_apply(params, pixels)
+    edges = [N.to_host(resize(o[0, :, :, 0], (th, tw), "linear"))
              for o in outs]
-    edge = 1.0 / (1.0 + np.exp(-np.mean(np.stack(edges), axis=0)))
-    edge = edge[:h, :w]
-    if scribble:
-        edge = _nms_thin(edge)
-    return np.stack([edge.astype(np.float32)] * 3, -1)
+    with _FUSE:
+        edge = 1.0 / (1.0 + np.exp(-np.mean(np.stack(edges), axis=0)))
+        edge = edge[:h, :w]
+        if scribble:
+            edge = _nms_thin(edge)
+        return np.stack([edge.astype(np.float32)] * 3, -1)

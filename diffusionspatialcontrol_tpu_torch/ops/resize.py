@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import Span, count
+
 _MODES = {
     "bilinear": "linear",
     "bicubic": "cubic",
@@ -73,6 +75,7 @@ def _weights(n_in: int, n_out: int, method: str, antialias: bool,
                     w / torch.where(total != 0, total, torch.ones_like(total)),
                     torch.zeros_like(w))
     inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    count("resize.weights_built")
     return torch.where(inside[None, :], w, torch.zeros_like(w)).T
 
 
@@ -80,6 +83,8 @@ def _nearest_index(n_in: int, n_out: int) -> np.ndarray:
     offsets = (np.arange(n_out, dtype=np.float32) + 0.5) * n_in / n_out
     return np.floor(offsets.astype(np.float32)).astype(np.int64)
 
+
+_RESIZE = Span("resize")
 
 _METHODS = {"linear": "linear", "bilinear": "linear", "trilinear": "linear",
             "cubic": "cubic", "bicubic": "cubic", "tricubic": "cubic",
@@ -93,23 +98,28 @@ def resize(x: torch.Tensor, shape, method: str = "linear",
     (B, H, W) masks alike. Every axis whose size changes is resized, one
     after the other, with that axis's weight matrix ("linear" or "cubic";
     ``antialias`` widens the kernel when shrinking, as JAX's default does)
-    or its half-pixel nearest index ("nearest")."""
+    or its half-pixel nearest index ("nearest"). Span ``resize``; counter
+    ``resize.weights_built``, one a weight matrix built."""
     method = _METHODS[method]
     if len(shape) != x.dim():
         raise ValueError(f"shape {tuple(shape)} has not the {x.dim()} axes "
                          f"of x")
     letters = "abcdefgh"[: x.dim()]
     out = x
-    for axis, (n_in, n_out) in enumerate(zip(x.shape, shape)):
-        if n_in == n_out:
-            continue
-        if method == "nearest":
-            idx = torch.from_numpy(_nearest_index(n_in, n_out)).to(x.device)
-            out = out.index_select(axis, idx)
-            continue
-        wm = _weights(n_in, n_out, method, antialias, x.device).to(out.dtype)
-        dst = letters[:axis] + "z" + letters[axis + 1:]
-        out = torch.einsum(f"z{letters[axis]},{letters}->{dst}", wm, out)
+    with _RESIZE:
+        for axis, (n_in, n_out) in enumerate(zip(x.shape, shape)):
+            if n_in == n_out:
+                continue
+            if method == "nearest":
+                idx = torch.from_numpy(_nearest_index(n_in, n_out)).to(
+                    x.device)
+                out = out.index_select(axis, idx)
+                continue
+            wm = _weights(n_in, n_out, method, antialias,
+                          x.device).to(out.dtype)
+            dst = letters[:axis] + "z" + letters[axis + 1:]
+            out = torch.einsum(f"z{letters[axis]},{letters}->{dst}", wm,
+                               out)
     return out
 
 

@@ -212,7 +212,7 @@ def test_native_build_failure_raises_with_compiler_output(monkeypatch,
         tnative.encode_png(np.zeros((2, 2, 3), np.uint8))
 
 
-def test_profiling_matches_jax(tmp_path):
+def test_profiling_matches_jax():
     t, j = tprofiling.PhaseTimer(), jprofiling.PhaseTimer()
     for timer in (t, j):
         with timer.phase("encode"):
@@ -240,11 +240,6 @@ def test_profiling_matches_jax(tmp_path):
         with pytest.raises(TimeoutError, match="1e-09s watchdog"):
             wd.check()
     tprofiling.Watchdog(0).check()  # 0 turns it off
-    with tprofiling.profiler_trace(None):
-        pass
-    with tprofiling.profiler_trace(str(tmp_path)):
-        torch.ones(4).add(1)
-    assert list(tmp_path.glob("*.json"))
 
 
 # -- routing parity -------------------------------------------------------
