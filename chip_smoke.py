@@ -30,14 +30,17 @@ result line:
    L = 1024 at D = 40); K1 at the 1920x1088 request's level 0 (B = 2,
    L = 32640) with that request's own bias, and K1 and K2 (self- and
    cross-attention) at batch 4 with the CFG pair (B = 8) at the 512^2 and
-   768^2 level 0 (L = 4096, 9216),
+   768^2 level 0 (L = 4096, 9216); HED's tail kernel (``hed_fuse``)
+   against its plain version at the 768 x 1024 and 512^2 pictures with
+   C = 3 and 1,
    with the RMS-relative error beside the elementwise one and, where the C_in chunks are split
    over several blocks, two launches held bitwise equal. Each with its time
    beside the plain version's, the least time the card could take (bound;
    the log lines of attention also give the time of its exps alone, and
    K2's self-attentions the times of its three other option instances) and
    one library call as a yardstick (``library_ms``: SDPA for attention,
-   cuDNN's conv for K4/K5; the port never calls them); the convs also
+   cuDNN's conv for K4/K5, an ``F.interpolate`` tail for HED's; the
+   port never calls them); the convs also
    beside the port's own unfused resnet conv (``unfused_ms``: GroupNorm,
    SiLU, library conv, adds, as ``conv_impl="xla"`` runs them);
 3. tiny: the tiny config's txt2img (fp32, 64x64, 4 steps, with and without a
@@ -300,6 +303,8 @@ REPLACES = {
     "K3": _PALLAS + "flash_attention.py:33",
     "K4": _PALLAS + "conv_fused.py:96 (K4a) and :138 (K4b)",
     "K5": _PALLAS + "conv_fused.py:440",
+    "HED tail": "none: jax.image.resize and numpy in "
+                "diffusionspatialcontrol_tpu/models/hed.py:97 detect_edges",
 }
 
 
@@ -744,6 +749,7 @@ def phase_kernels(ctx):
         "K3": k3_checks(dev, g, timer, sdpa),
     }
     ctx["kernels"].update(conv_checks(dev, g, timer))
+    ctx["kernels"]["HED tail"] = hed_tail_checks(dev, timer)
 
 
 def k3_checks(dev, g, timer, sdpa):
@@ -1118,6 +1124,81 @@ def conv_checks(dev, g, timer):
     return {name: summary(name) for name in kernels}
 
 
+# HED's tail: (th, tw) of the pictures the path gives it, the benchmark's
+# 768 x 1024 photo and phase preprocess's DETECT_SIDE^2 one (multiples of
+# 16, so uncropped), each with C = 3 (soft edge) and C = 1 (scribble)
+HED_TAIL_SHAPES = ((768, 1024), (512, 512))
+
+
+def hed_tail_library(sides, h: int, w: int, channels: int = 3):
+    """HED's tail in library calls, the yardstick of ``library_ms``:
+    ``F.interpolate`` of sides 1-4 (bilinear on half-pixel centres, the
+    kernel's taps), then stack, mean, sigmoid, crop and C channels."""
+    import torch.nn.functional as F
+
+    size = tuple(sides[0].shape)
+    up = [sides[0]] + [F.interpolate(s[None, None], size=size,
+                                     mode="bilinear", align_corners=False)[0, 0]
+                       for s in sides[1:]]
+    edge = torch.sigmoid(torch.stack(up).mean(0))[:h, :w]
+    return edge[:, :, None].expand(h, w, channels).contiguous()
+
+
+def hed_tail_bytes(th: int, tw: int, h: int, w: int, channels: int) -> int:
+    """The least bytes of one tail: the five side maps read once, the
+    (h, w, C) float32 map written."""
+    return 4 * (sum((th >> k) * (tw >> k) for k in range(5))
+                + h * w * channels)
+
+
+def hed_tail_checks(dev, timer):
+    """HED's tail kernel against its plain version (``resize``, torch ops)
+    on the same CUDA side maps at ``HED_TAIL_SHAPES``, C = 3 and 1, within
+    atol 2e-6 (the same fp32 formula with the taps blended in another
+    order: a few ulps of a value in [0, 1]); the library tail held to the
+    plain version alike. Timed where C = 3: the kernel, the plain version
+    and the library tail, beside the bytes bound."""
+    from diffusionspatialcontrol_tpu_torch.ops.kernels import hed_fuse
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows, err = [], 0.0
+    for th, tw in HED_TAIL_SHAPES:
+        sides = [torch.randn(th >> k, tw >> k, generator=g, device=dev) * 2
+                 for k in range(hed_fuse.SIDES)]
+        for c in (3, 1):
+            tag = f"HED tail {th}x{tw}x{c}"
+            want = hed_fuse.hed_tail_plain(sides, th, tw, c)
+            e = check_close(tag, hed_fuse.hed_tail_kernel(sides, th, tw, c),
+                            want, 0.0, 2e-6)
+            e_lib = check_close(f"{tag} library",
+                                hed_tail_library(sides, th, tw, c), want, 0.0,
+                                2e-6)
+            err = max(err, e)
+            row = {"H": th, "W": tw, "C": c, "max_abs_err_fp32": e}
+            if c == 3:
+                row.update(
+                    ms=timer(lambda: hed_fuse.hed_tail_kernel(sides, th, tw,
+                                                              c), reps=50),
+                    plain_ms=timer(lambda: hed_fuse.hed_tail_plain(
+                        sides, th, tw, c)),
+                    library_ms=timer(lambda: hed_tail_library(sides, th, tw,
+                                                              c)),
+                    bound_ms=1e3 * hed_tail_bytes(th, tw, th, tw, c)
+                    / PEAK_BYTES)
+            rows.append(row)
+            times = ""
+            if c == 3:
+                times = (f"; {row['ms']:.5f} ms, plain {row['plain_ms']:.4f} "
+                         f"ms, library {row['library_ms']:.5f} ms, bound "
+                         f"{row['bound_ms']:.5f} ms "
+                         f"({100 * row['bound_ms'] / row['ms']:.1f}%)")
+            log(f"kernels: {tag}: err {e:.2e} (library {e_lib:.2e}){times}")
+    first = rows[0]  # the benchmark's picture, C = 3
+    return {key: first[key]
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")} | {
+        "bound_by": "bytes", "err": [err, err], "shapes": rows}
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -1267,7 +1348,8 @@ def attention_levels(cfg, height: int, width: int):
 
 
 def _counts():
-    """Launches so far of K1, K2, K4 and K5; "K3": K2's launches at the
+    """Launches so far of K1, K2, K4, K5 and HED's tail kernel ("HED
+    tail", ``hed_fuse.hed_tail``); "K3": K2's launches at the
     shapes where the JAX package streams (``jax_streams``: the level-0
     self-attentions at 1024^2, L = S = 16384, and at 1920x1088, L = S =
     32640); "K4b": K4's launches at the shapes the JAX package sends to its
@@ -1275,8 +1357,11 @@ def _counts():
     launches where the JAX package finds no tile and runs unfused convs
     (``jax_route``); "K1 S=154" and "K2 S=154": launches on a context of
     two prompt chunks."""
+    from diffusionspatialcontrol_tpu_torch.ops.kernels import hed_fuse
+
     w = _wrappers()
     c = {name: fn.launches for name, fn in w.items()}
+    c["HED tail"] = hed_fuse.hed_tail.launches
     c["K3"] = sum(n for (_, s, d), n in w["K2"].shapes.items()
                   if jax_streams(s, d))
     k4 = [(jax_route(*key[1:])[0], n) for key, n in w["K4"].shapes.items()]
@@ -1291,9 +1376,12 @@ def _counts():
 
 
 def _reset_counts():
+    from diffusionspatialcontrol_tpu_torch.ops.kernels import hed_fuse
+
     for fn in _wrappers().values():
         fn.launches = 0
         fn.shapes.clear()
+    hed_fuse.hed_tail.launches = 0
 
 
 def want_launches(cfg, size, calls, spatial, conv_impl, hires_calls=0,
@@ -1309,7 +1397,8 @@ def want_launches(cfg, size, calls, spatial, conv_impl, hires_calls=0,
     the K2 launches of the image tower and the Resampler, once a request
     (``ip_tower_launches``). K3 counts the self-attentions among K2's
     launches where the JAX package streams (``jax_streams``); "K4b", "K4
-    JAX-unfused" and "K5 JAX-unfused" the fused convs by ``jax_route``."""
+    JAX-unfused" and "K5 JAX-unfused" the fused convs by ``jax_route``;
+    "HED tail" none (only the HED detectors launch it)."""
     h, w = (size, size) if isinstance(size, int) else size
     runs = [((h, w), calls)] + ([((2 * h, 2 * w), hires_calls)]
                                 if hires_calls else [])
@@ -1325,7 +1414,7 @@ def want_launches(cfg, size, calls, spatial, conv_impl, hires_calls=0,
                       if jax_streams(l, d)),
             "K4": 0, "K5": 0, "K4b": 0, "K4 JAX-unfused": 0,
             "K5 JAX-unfused": 0,
-            f"K1 S={CHUNKED}": 0, f"K2 S={CHUNKED}": 0}
+            f"K1 S={CHUNKED}": 0, f"K2 S={CHUNKED}": 0, "HED tail": 0}
     if text_s == CHUNKED:
         want[f"K{1 if spatial else 2} S={CHUNKED}"] = PER_UNET * n
         want[f"K2 S={CHUNKED}"] += cn_attn // 2 * controlnets * n
@@ -2233,9 +2322,10 @@ def phase_main(ctx):
         + f"; launches {ctx['launches']} (card: {card_line()})")
     log("main: seconds by request type: " + ", ".join(
         f"{k} {v:.1f}" for k, v in ctx["seconds"].items()))
-    # the JAX-unfused labels count only at 1088 x 1920 (phase large)
+    # the JAX-unfused labels count only at 1088 x 1920 (phase large), HED's
+    # tail only in phase preprocess
     if min(v for k, v in ctx["launches"].items()
-           if not k.endswith("JAX-unfused")) == 0:
+           if not k.endswith("JAX-unfused") and k != "HED tail") == 0:
         raise AssertionError("main: a kernel of the path never launched")
 
 
@@ -3948,6 +4038,8 @@ def phase_multi(ctx):
 
 
 DETECT_SIDE = 512  # phase preprocess: the photo, and the request's size
+# the detectors that run HED's tail kernel, once a call
+HED_DETECTORS = ("Soft Edge (HED)", "Scribble (HED)")
 
 
 def _detector_nets():
@@ -4103,9 +4195,10 @@ def phase_preprocess(ctx):
     3. every name of the app's table through a ``ModelManager``'s
        ``get_preprocessor`` (the model-based ones at published width, the
        same random weights) on a 512^2 photo: the seconds to build, the
-       wall ms a call, the output's shape and range, and the same output
-       bit for bit with the process-wide TF32 off (the detector decides its
-       precision);
+       wall ms a call, the output's shape and range, the same output bit
+       for bit with the process-wide TF32 off (the detector decides its
+       precision), and one launch of HED's tail kernel a call of the two
+       HED detectors, none of the others;
     4. the slice's request, ``spatial_controlnet_depth``: SD1.5 at full
        width, the spatial request (512^2, the two-phrase map, 25 steps) with
        one ControlNet unit (random heads at ``HEAD_RMS``) whose
@@ -4215,8 +4308,10 @@ def phase_preprocess(ctx):
                       ("Normal Map", normalbae.NormalBaeConfig())):
         manager.register_preprocessor(name, cfg=cfg)
     outs = {}
+    _reset_counts()
     for name in list(pp.NATIVE_PREPROCESSORS) + list(
             pp.NATIVE_MODEL_PREPROCESSORS):
+        before = _counts()["HED tail"]
         tb = time.perf_counter()
         fn = manager.get_preprocessor(name)
         opts = {"include_hand": True, "include_face": True} \
@@ -4236,6 +4331,11 @@ def phase_preprocess(ctx):
         if not same:
             raise AssertionError(f"preprocess: {name}: the output changes "
                                  f"with the process-wide TF32 setting")
+        # four calls: the warm-up, two timed, the one with TF32 off
+        tails = _counts()["HED tail"] - before
+        if tails != (4 if name in HED_DETECTORS else 0):
+            raise AssertionError(f"preprocess: {name}: {tails} launches of "
+                                 f"HED's tail kernel in 4 calls")
         if out.shape != (DETECT_SIDE, DETECT_SIDE, 3) or \
                 out.dtype != np.float32 or not np.isfinite(out).all() or \
                 out.min() < 0.0 or out.max() > 1.0:
@@ -4246,8 +4346,12 @@ def phase_preprocess(ctx):
             f"{np.median(walls):.1f} ms a call (wall), output "
             f"{out.shape} in [{out.min():.3f}, {out.max():.3f}], mean "
             f"{out.mean():.3f}, the same with TF32 off process-wide")
+    tails = _counts()["HED tail"]
+    totals = ctx.setdefault("launches", {})
+    totals["HED tail"] = totals.get("HED tail", 0) + tails
     log(f"preprocess: {len(outs)} detectors through the manager in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s; HED's tail kernel {tails} "
+        f"launches, one a call of {', '.join(HED_DETECTORS)}")
 
     # 4. the slice's request
     cfg = sd15_config()
@@ -4295,7 +4399,6 @@ def phase_preprocess(ctx):
             f"{' (warm-up)' if i == 0 else ''}, {n.n} UNet calls, launches "
             f"{ {k: v for k, v in launches.items() if v} }")
     direct = _counts()
-    totals = ctx.setdefault("launches", {})
     for k, v in direct.items():
         totals[k] = totals.get(k, 0) + v
     if not (direct["K1"] and direct["K2"]):
@@ -4962,6 +5065,11 @@ KERNEL_LINE = {  # name, source, what "ms" and the other times are per
     "K5": ("K5 conv_fused_v2", "conv_fused_v2.cu",
            "the 44 launches of one SD1.5 512^2 UNet call, bf16, cold L2; "
            "library = cuDNN conv2d+bias on the pre-activated input"),
+    "HED tail": ("HED tail hed_fuse", "hed_fuse.cu",
+                 "one launch at 768 x 1024 x 3 (the benchmark's photo), "
+                 "fp32 (its only type), cold L2; plain = resize and torch "
+                 "ops; library = F.interpolate, stack, mean, sigmoid; "
+                 "launches = phase preprocess's HED requests"),
 }
 
 

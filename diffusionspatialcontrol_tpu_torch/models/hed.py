@@ -5,8 +5,9 @@ network of five blocks, each ending in a 1x1 side output, on raw 0..255
 pixels less a learned ``norm`` shift. The weights keep the
 ``ControlNetHED.pth`` layout (``norm``, ``block{k}.convs.{i}.*``,
 ``block{k}.projection.*``). The detector takes the sigmoid of the side
-outputs' mean; scribble mode thins and binarizes it (``pidinet._nms_thin``,
-numpy, the JAX package's code).
+outputs' mean (``ops/kernels/hed_fuse.py:hed_tail``, on the parameters'
+device: one kernel on the card); scribble mode thins and binarizes it on
+the host (``pidinet._nms_thin``, numpy, the JAX package's code).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.resize import resize
+from ..ops.kernels.hed_fuse import hed_tail
 from ..utils.profiling import Span
 from . import _nets as N
 from .pidinet import _nms_thin
@@ -78,7 +79,12 @@ def hed_apply(params, pixels: torch.Tensor) -> List[torch.Tensor]:
 def detect_edges(params, image: np.ndarray, scribble: bool = False
                  ) -> np.ndarray:
     """RGB image -> (H, W, 3) soft-edge map in [0, 1]; ``scribble``
-    thins and binarizes it into the Scribble ControlNet's sketch."""
+    thins and binarizes it into the Scribble ControlNet's sketch. Spans:
+    ``hed.prepare``, ``hed.net``, ``hed.fuse`` (the tail: a kernel launch
+    on the card, the plain version with its ``resize`` spans on the CPU),
+    then one ``to_host``; scribble's thinning and three-channel stack run
+    after it on the host under no child span, so a profiled request counts
+    their device idle as outside the spans."""
     with _PREPARE:
         img = np.asarray(image)
         if img.dtype != np.uint8 and img.max() <= 1.0:
@@ -87,15 +93,15 @@ def detect_edges(params, image: np.ndarray, scribble: bool = False
         h, w = img.shape[:2]
         padded = np.pad(img, ((0, (-h) % 16), (0, (-w) % 16), (0, 0)),
                         mode="edge")
-        th, tw = padded.shape[:2]
         pixels = N.host_image(padded, N.param_device(params))
     with _NET:
         outs = hed_apply(params, pixels)
-    edges = [N.to_host(resize(o[0, :, :, 0], (th, tw), "linear"))
-             for o in outs]
     with _FUSE:
-        edge = 1.0 / (1.0 + np.exp(-np.mean(np.stack(edges), axis=0)))
-        edge = edge[:h, :w]
-        if scribble:
-            edge = _nms_thin(edge)
+        # allocated after the network, from its freed activations
+        edge = hed_tail([o[0, :, :, 0] for o in outs], h, w,
+                        1 if scribble else 3)
+    edge = N.to_host(edge)
+    if scribble:
+        edge = _nms_thin(edge[:, :, 0])
         return np.stack([edge.astype(np.float32)] * 3, -1)
+    return edge

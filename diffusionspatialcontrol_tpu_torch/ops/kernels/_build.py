@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 SOURCES = ("region_attention", "flash_attention", "conv_fused",
-           "conv_fused_v2")
+           "conv_fused_v2", "hed_fuse")
 
 _loaded: Dict[str, object] = {}
 

@@ -54,6 +54,8 @@ from diffusionspatialcontrol_tpu_torch.models import pidinet as tpid
 from diffusionspatialcontrol_tpu_torch.models import upernet as tup
 from diffusionspatialcontrol_tpu_torch.models import zoedepth as tzoe
 from diffusionspatialcontrol_tpu_torch.ops import preprocess as tpp
+from diffusionspatialcontrol_tpu_torch.ops.kernels import hed_fuse
+from diffusionspatialcontrol_tpu_torch.ops.resize import resize
 
 # One intra-op thread per xdist worker: the workers share the CPU's cores.
 torch.set_num_threads(1)
@@ -147,6 +149,110 @@ def test_hed_detector_matches_jax(scribble):
             thed._nms_thin(soft[..., 0]), jpid._nms_thin(soft[..., 0]))
         assert set(np.unique(thed.detect_edges(tp, img, scribble=True))) \
             <= {0.0, 1.0}
+
+
+def _hed_sides(th, tw, seed=3):
+    """Five side-output logit maps of a (th, tw) picture, of order one."""
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(
+        (rng.randn(th >> k, tw >> k) * 2).astype(np.float32))
+        for k in range(hed_fuse.SIDES)]
+
+
+def _hed_tail_taps(sides, h, w, channels):
+    """The kernel's arithmetic (``csrc/hed_fuse.cu``) in float32 numpy:
+    side k >= 1 at src = (y + 0.5) / 2^k - 0.5, the taps floor(src) and
+    floor(src) + 1 clamped to the map, weights 1 - f and f, rows first."""
+    f32 = np.float32
+    y = np.arange(h, dtype=f32)[:, None]
+    x = np.arange(w, dtype=f32)[None, :]
+    total = sides[0].numpy()[:h, :w].copy()
+    for k in range(1, hed_fuse.SIDES):
+        m = sides[k].numpy()
+        inv = f32(1.0 / 2 ** k)
+        sy, sx = (y + f32(0.5)) * inv - f32(0.5), (x + f32(0.5)) * inv \
+            - f32(0.5)
+        y0, x0 = np.floor(sy), np.floor(sx)
+        fy, fx = sy - y0, sx - x0
+        r0 = np.clip(y0, 0, m.shape[0] - 1).astype(int)
+        r1 = np.clip(y0 + 1, 0, m.shape[0] - 1).astype(int)
+        c0 = np.clip(x0, 0, m.shape[1] - 1).astype(int)
+        c1 = np.clip(x0 + 1, 0, m.shape[1] - 1).astype(int)
+        left = (1 - fy) * m[r0, c0] + fy * m[r1, c0]
+        right = (1 - fy) * m[r0, c1] + fy * m[r1, c1]
+        total = total + ((1 - fx) * left + fx * right)
+    edge = f32(1) / (f32(1) + np.exp(-(total / f32(5))))
+    return np.stack([edge] * channels, -1)
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("th,tw,h,w", [(64, 96, 64, 96), (64, 80, 50, 70)],
+                         ids=["multiple_of_16", "padded"])
+def test_hed_tail_matches_the_numpy_formula(th, tw, h, w, channels):
+    """The plain tail (``hed_fuse.hed_tail`` on CPU maps) within 1e-6 of
+    the numpy tail it replaced in ``detect_edges`` (each side resized to
+    the padded size, numpy's mean and sigmoid, the crop, the channels),
+    and of the card kernel's tap arithmetic written out in numpy."""
+    sides = _hed_sides(th, tw)
+    edges = [resize(s, (th, tw), "linear").numpy() for s in sides]
+    edge = 1.0 / (1.0 + np.exp(-np.mean(np.stack(edges), axis=0)))
+    want = np.stack([edge[:h, :w].astype(np.float32)] * channels, -1)
+    before = hed_fuse.hed_tail.launches
+    got = hed_fuse.hed_tail(sides, h, w, channels)
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    close(got, want, 1e-6)
+    close(got, _hed_tail_taps(sides, h, w, channels), 1e-6)
+    assert hed_fuse.hed_tail.launches == before  # the plain version ran
+
+
+@pytest.mark.parametrize("case", ["four_sides", "not_16", "side_shape",
+                                  "float64", "crop", "channels",
+                                  "mixed_devices"])
+def test_hed_tail_refuses_before_launching(case):
+    """The launcher's checks run before anything is built or launched, so
+    they show here on CPU maps; a mix of devices never reaches the plain
+    version."""
+    sides, h, w, channels = _hed_sides(64, 80), 50, 70, 3
+    err = ValueError
+    if case == "four_sides":
+        sides = sides[:4]
+    elif case == "not_16":
+        sides = _hed_sides(72, 80)
+    elif case == "side_shape":
+        sides[3] = sides[3][:-1]
+    elif case == "float64":
+        sides[2], err = sides[2].double(), TypeError
+    elif case == "crop":
+        h = 65
+    elif case == "channels":
+        channels = 0
+    before = hed_fuse.hed_tail.launches
+    with pytest.raises(err):
+        if case == "mixed_devices":
+            sides[4] = torch.empty(sides[4].shape, device="meta")
+            hed_fuse.hed_tail(sides, h, w, channels)
+        else:
+            hed_fuse.hed_tail_kernel(sides, h, w, channels)
+    assert hed_fuse.hed_tail.launches == before
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("th,tw,h,w", [(64, 96, 64, 96), (64, 80, 50, 70)],
+                         ids=["multiple_of_16", "padded"])
+def test_the_smokes_library_tail_matches_the_plain_tail(th, tw, h, w,
+                                                        channels):
+    """``chip_smoke.hed_tail_library``, the ``F.interpolate`` tail the
+    card's smoke times HED's tail kernel against, computes the plain tail
+    within the 2e-6 the smoke holds it to; ``hed_tail_bytes`` counts the
+    five maps read and the map written (13.6 MB at 768 x 1024 x 3)."""
+    import chip_smoke
+
+    sides = _hed_sides(th, tw)
+    got = chip_smoke.hed_tail_library(sides, h, w, channels)
+    assert got.shape == (h, w, channels) and got.is_contiguous()
+    close(got, hed_fuse.hed_tail_plain(sides, h, w, channels), 2e-6)
+    assert chip_smoke.hed_tail_bytes(768, 1024, 768, 1024, 3) == 4 * (
+        768 * 1024 * (1 + 1 / 4 + 1 / 16 + 1 / 64 + 1 / 256) + 768 * 1024 * 3)
 
 
 def test_pidinet_fold_pdc_matches_jax():

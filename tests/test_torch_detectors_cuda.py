@@ -9,17 +9,19 @@ imports JAX:
 
 Two detector networks (DPT and MLSD, random weights at small widths, fp32
 with TF32 off) on CUDA tensors within 1e-4 of their largest output value of
-the same network on the CPU, and the OpenCV replacements (``ops/cv.py``:
-elementwise float32 ops only) on CUDA tensors bit for bit equal to their
-CPU runs.
+the same network on the CPU, HED's detector (its tail a kernel on the card)
+within the same tolerance of its CPU run, and the OpenCV replacements
+(``ops/cv.py``: elementwise float32 ops only) on CUDA tensors bit for bit
+equal to their CPU runs.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from diffusionspatialcontrol_tpu_torch.models import dpt, mlsd
+from diffusionspatialcontrol_tpu_torch.models import dpt, hed, mlsd
 from diffusionspatialcontrol_tpu_torch.ops import cv
+from diffusionspatialcontrol_tpu_torch.ops.kernels import hed_fuse
 
 # One intra-op thread per xdist worker: the workers share the CPU's cores.
 torch.set_num_threads(1)
@@ -65,6 +67,35 @@ def test_mlsd_on_the_card_matches_the_cpu(dev):
     host = mlsd.mlsd_apply(mlsd.convert_mlsd(sd, "cpu"), x)
     card = mlsd.mlsd_apply(mlsd.convert_mlsd(sd, dev), x.to(dev))
     _close(card, host)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scribble", [False, True])
+def test_hed_on_the_card_matches_the_cpu(dev, monkeypatch, scribble):
+    """A 100 x 130 picture (padded to 112 x 144, so the tail crops): one
+    tail kernel a call. Scribble thins the card's one-channel map on the
+    host: that map within the tolerance of the CPU's soft map, the sketch
+    its thinning bit for bit (a threshold may flip a pixel between two
+    maps that differ in their last bits)."""
+    sd = hed.random_state_dict(hed.HEDConfig((8, 12, 16, 16, 24)), seed=1)
+    img = (np.random.RandomState(2).rand(100, 130, 3) * 255).astype(
+        np.uint8)
+    host = hed.detect_edges(hed.convert_hed(sd, "cpu"), img)
+    params = hed.convert_hed(sd, dev)
+    launches = hed_fuse.hed_tail.launches
+    if scribble:
+        thin, seen = hed._nms_thin, []
+        monkeypatch.setattr(hed, "_nms_thin",
+                            lambda e: thin(seen.append(e.copy()) or e))
+        card = hed.detect_edges(params, img, scribble=True)
+        _close(torch.from_numpy(seen[0]), torch.from_numpy(host[..., 0]))
+        np.testing.assert_array_equal(card, np.stack([thin(seen[0])] * 3,
+                                                     -1))
+    else:
+        card = hed.detect_edges(params, img)
+        assert card.dtype == np.float32 and card.flags.c_contiguous
+        _close(torch.from_numpy(card), torch.from_numpy(host))
+    assert hed_fuse.hed_tail.launches == launches + 1
 
 
 @pytest.mark.cuda

@@ -1,4 +1,5 @@
-"""K1, K2, K4 and K5 on the card against their plain PyTorch versions.
+"""K1, K2, K4, K5 and HED's tail on the card against their plain PyTorch
+versions.
 
 Marked ``cuda``: they need a CUDA device and nvcc, and skip without them.
 This file imports only torch and the port (no JAX), so it runs on a machine
@@ -13,13 +14,15 @@ same bf16 values, rtol 1e-2 (the bf16 rounding of the output, at most 2^-8
 relative) and atol 5% of the reference's RMS (outputs near zero); the same
 for K2's pv_bf16/exp2 options against the plain version with those options.
 fp32 operands run the CUDA-core body (csrc/attention.cuh), bf16 operands
-the tensor-core body (csrc/attention_mma.cuh).
+the tensor-core body (csrc/attention_mma.cuh). HED's tail: atol 2e-6 on a
+map in [0, 1] (the same float32 arithmetic, its sums in another order).
 """
 
 import pytest
 import torch
 
 from diffusionspatialcontrol_tpu_torch.ops.kernels import flash_attention as k2
+from diffusionspatialcontrol_tpu_torch.ops.kernels import hed_fuse
 from diffusionspatialcontrol_tpu_torch.ops.kernels import region_attention as k1
 from diffusionspatialcontrol_tpu_torch.ops.kernels._launch import HEAD_DIMS
 
@@ -573,3 +576,48 @@ def test_k1_k2_at_the_sd21_shapes(dev, l, h):
     torch.testing.assert_close(
         k1.region_softmax_attention_kernel(q, k, v, w),
         k1.region_softmax_attention_plain(q, k, v, w), rtol=2e-4, atol=2e-5)
+
+
+def _hed_sides(dev, th, tw, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(th >> k, tw >> k, device=dev, generator=g) * 2
+            for k in range(hed_fuse.SIDES)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("th,tw,h,w", [(1024, 768, 1024, 768),
+                                       (256, 336, 250, 333)],
+                         ids=["1024x768", "cropped"])
+def test_hed_tail_matches_plain(dev, th, tw, h, w, channels):
+    sides = _hed_sides(dev, th, tw)
+    got = hed_fuse.hed_tail_kernel(sides, h, w, channels)
+    want = hed_fuse.hed_tail_plain(sides, h, w, channels)
+    assert got.shape == (h, w, channels) and got.is_contiguous()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
+
+
+@pytest.mark.cuda
+def test_hed_tail_counts_and_refuses(dev):
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffusionspatialcontrol_tpu_torch.utils import profiling
+
+    sides = _hed_sides(dev, 64, 80, seed=1)
+    before = hed_fuse.hed_tail.launches
+    fuse = profiling.Span("hed.fuse")
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(2):
+            with fuse:
+                hed_fuse.hed_tail(sides, 50, 70)
+    assert hed_fuse.hed_tail.launches == before + 2
+    spans = [s for s in profiling.recorded_spans() if s.name == "hed.fuse"]
+    assert [s.counters for s in spans[-2:]] == [{"hed.tail_kernel": 1}] * 2
+    # refused operands launch nothing and count nothing
+    with pytest.raises(ValueError):  # a CUDA map never reaches the plain
+        hed_fuse.hed_tail(sides[:4] + [sides[4].cpu()], 50, 70)
+    with pytest.raises(ValueError):  # side 3 not a quarter of side 1
+        hed_fuse.hed_tail(sides[:3] + [sides[3][:-1]] + sides[4:], 50, 70)
+    with pytest.raises(TypeError):
+        hed_fuse.hed_tail([s.double() for s in sides], 50, 70)
+    assert hed_fuse.hed_tail.launches == before + 2

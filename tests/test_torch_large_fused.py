@@ -24,6 +24,7 @@ from diffusionspatialcontrol_tpu_torch import config as tcfg
 from diffusionspatialcontrol_tpu_torch.models import unet as tunet
 from diffusionspatialcontrol_tpu_torch.models import vae as tvae
 from diffusionspatialcontrol_tpu_torch.ops.kernels import conv_fused as tconv
+from diffusionspatialcontrol_tpu_torch.ops.kernels import hed_fuse
 
 from test_torch_conv_fused import _jax_routes, _resnet_case
 
@@ -127,6 +128,24 @@ def test_counts_label_the_large_launches_as_want_launches(monkeypatch,
     assert want[f"{name} JAX-unfused"] == 6
     assert want["K4b"] == (20 * chip_smoke.STEPS + 22
                            if conv_impl == "pallas" else 0)
+
+
+def test_counts_and_want_launches_share_their_labels(monkeypatch):
+    """Every label ``_counts`` tallies is one ``want_launches`` expects, so
+    a request's launches compare whole; HED's tail kernel, which no
+    diffusion request launches, is read from its wrapper, expected at 0
+    and reset by ``_reset_counts`` with the others."""
+    for fn in chip_smoke._wrappers().values():
+        monkeypatch.setattr(fn, "launches", 5)
+        monkeypatch.setattr(fn, "shapes", collections.Counter())
+    monkeypatch.setattr(hed_fuse.hed_tail, "launches", 3)
+    got = chip_smoke._counts()
+    want = chip_smoke.want_launches(tcfg.sd15_config(), 512,
+                                    chip_smoke.STEPS, True, "xla")
+    assert set(got) == set(want)
+    assert got["HED tail"] == 3 and want["HED tail"] == 0
+    chip_smoke._reset_counts()
+    assert set(chip_smoke._counts().values()) == {0}
 
 
 @pytest.mark.parametrize("height,width,batch", [(64, 192, 1), (64, 64, 4)])

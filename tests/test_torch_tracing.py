@@ -19,13 +19,13 @@ from torch.profiler import ProfilerActivity, profile
 
 from diffusionspatialcontrol_tpu_torch.app import api
 from diffusionspatialcontrol_tpu_torch.models import hed
+from diffusionspatialcontrol_tpu_torch.ops.kernels import hed_fuse
 from diffusionspatialcontrol_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
 NAME = "Soft Edge (HED)"
-HED_CHILDREN = (["hed.prepare", "hed.net"] + ["resize", "to_host"] * 5
-                + ["hed.fuse"])
+HED_CHILDREN = ["hed.prepare", "hed.net", "hed.fuse", "to_host"]
 
 
 @pytest.fixture(scope="module")
@@ -78,38 +78,56 @@ def test_a_profiled_request_is_a_tree_on_the_profilers_clock(detect,
     root = spans[-1]  # a span is kept when it ends: the root last
     assert (root.name, root.parent) == ("preprocess", None)
     assert {s.root for s in spans} == {root.id}
-    children = spans[:-1]
+    children = [s for s in spans if s.parent == root.id]
     assert [s.name for s in children] == HED_CHILDREN
-    assert all(s.parent == root.id for s in children)
+    resizes = [s for s in spans if s.name == "resize"]
+    # on the CPU the plain tail resizes each side map inside hed.fuse
+    assert len(children) + len(resizes) + 1 == len(spans)
+    assert {s.parent for s in resizes} == {children[2].id}
     assert len({s.id for s in spans}) == len(spans)
     for a, b in zip(children, children[1:]):
         assert root.start_ns <= a.start_ns <= a.end_ns <= b.start_ns
     assert children[-1].end_ns <= root.end_ns
-    builds = [s.counters.get("resize.weights_built", 0) for s in children
-              if s.name == "resize"]
+    builds = [s.counters.get("resize.weights_built", 0) for s in resizes]
     assert builds == [0, 2, 2, 2, 2]  # the stride-1 map is not resized
 
     # the profiler's events of the spans' own torch ops lie inside them,
     # on its clock: one einsum a weight matrix in the resizes; and the
-    # copy of a map (``cpu()``, ``numpy()``) in each to_host span, which
+    # copy of the map (``cpu()``, ``numpy()``) in the to_host span, which
     # opens just before its first op and closes just after its last
     events = [e for e in prof.profiler.kineto_results.events()
               if root.start_ns <= e.start_ns() <= root.end_ns]
     assert not {s.name for s in spans} & {e.name() for e in events}
     einsums = [e for e in events if e.name() == "aten::einsum"]
     assert len(einsums) == 8
-    assert _inside(einsums, [s for s in children if s.name == "resize"])
-    offsets = []
-    for s in children:
-        if s.name == "to_host":
-            ops = [e for e in events if s.start_ns <= e.start_ns() <= s.end_ns]
-            assert "aten::to" in {e.name() for e in ops}
-            assert _inside(ops, [s])
-            offsets += [min(e.start_ns() for e in ops) - s.start_ns,
-                        s.end_ns - max(e.start_ns() + e.duration_ns()
-                                       for e in ops)]
-    assert len(offsets) == 10
+    assert _inside(einsums, resizes)
+    copy = children[-1]
+    ops = [e for e in events
+           if copy.start_ns <= e.start_ns() <= copy.end_ns]
+    assert "aten::to" in {e.name() for e in ops}
+    assert _inside(ops, [copy])
+    offsets = [min(e.start_ns() for e in ops) - copy.start_ns,
+               copy.end_ns - max(e.start_ns() + e.duration_ns()
+                                 for e in ops)]
     assert statistics.median(offsets) < 50_000  # ns
+
+
+def test_the_cpu_tail_resizes_under_hed_fuse_and_counts_no_kernel(
+        detect, picture):
+    """On CPU parameters the tail is the plain version: its five resize
+    spans are children of ``hed.fuse``, which counts no
+    ``hed.tail_kernel``, and the kernel's launch count stays put."""
+    launches = hed_fuse.hed_tail.launches
+    before = _last_id()
+    with profile(activities=[ProfilerActivity.CPU]):
+        detect(picture)
+    spans = _new_spans(before)
+    fuse = [s for s in spans if s.name == "hed.fuse"]
+    assert len(fuse) == 1
+    assert [s.parent for s in spans if s.name == "resize"] == \
+        [fuse[0].id] * 5
+    assert not any("hed.tail_kernel" in s.counters for s in spans)
+    assert hed_fuse.hed_tail.launches == launches
 
 
 def test_the_buffer_keeps_the_newest_spans(monkeypatch):
